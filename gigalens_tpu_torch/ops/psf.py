@@ -1,0 +1,231 @@
+"""PSF handling: subgrid resampling (host-side numpy) and batched convolution.
+
+Port of :mod:`gigalens_tpu.ops.psf`. :func:`subgrid_kernel` and the DFT
+factor construction are numpy, copied as they are. :class:`PSFConv`
+convolves a (..., H, W) batch with a fixed kernel in one of two modes:
+
+* ``"dft"``: dense DFT-by-matmul with the 'SAME' crop and an optional
+  average pool folded into the inverse factors. On CUDA it runs the
+  hand-written kernel (``ops/cuda/dft_conv.py``, K4); on the CPU its plain
+  twin, the JAX package's ``_dft_conv`` einsum chain.
+* ``"fft"``: zero-padded linear convolution by ``torch.fft.rfft2`` /
+  ``irfft2`` with the kernel spectrum precomputed (the HMC/SMC "exact" path).
+
+Not ported yet: the ``"direct"`` mode and per-scene kernel stacks (survey
+mode). The JAX package's ``MAX_FFT_BATCH`` chunking works around a TPU
+FFT fault and has no counterpart here.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from gigalens_tpu_torch.ops.cuda.dft_conv import DFTConv
+
+
+# --------------------------------------------------------------------------
+# Host-side kernel preparation
+# --------------------------------------------------------------------------
+
+def _bilinear_resample(kernel: np.ndarray, factor: int, odd: bool = True) -> np.ndarray:
+    """Bilinear interpolation of ``kernel`` onto a grid ``factor``x finer.
+
+    The output grid is centered on the input grid's center; output size is
+    ``factor * n`` (forced to the nearest odd size when ``odd``).
+    """
+    n = kernel.shape[0]
+    m = factor * n
+    if odd and m % 2 == 0:
+        m += 1
+    # Coordinates of the fine grid in units of coarse pixels, center-aligned.
+    c_in = (n - 1) / 2.0
+    c_out = (m - 1) / 2.0
+    coords = (np.arange(m) - c_out) / factor + c_in
+    x0 = np.clip(np.floor(coords).astype(int), 0, n - 2)
+    w = coords - x0
+    w = np.clip(w, 0.0, 1.0)
+
+    # separable bilinear interpolation
+    rows = kernel[x0, :] * (1 - w)[:, None] + kernel[x0 + 1, :] * w[:, None]
+    out = rows[:, x0] * (1 - w)[None, :] + rows[:, x0 + 1] * w[None, :]
+    return out
+
+
+def _downsample_sum(kernel: np.ndarray, factor: int) -> np.ndarray:
+    """Sums ``factor x factor`` blocks centered on the kernel center."""
+    m = kernel.shape[0]
+    n = m // factor
+    if n * factor != m:
+        pad = (n + 1) * factor - m
+        lo = pad // 2
+        hi = pad - lo
+        kernel = np.pad(kernel, ((lo, hi), (lo, hi)))
+        n += 1
+    return kernel.reshape(n, factor, n, factor).sum(axis=(1, 3))
+
+
+def subgrid_kernel(
+    kernel: np.ndarray, factor: int, odd: bool = True, num_iter: int = 5
+) -> np.ndarray:
+    """Resamples a native-pixel PSF kernel onto a ``factor``x supersampled grid.
+
+    Flux-conserving: iteratively corrects the interpolated kernel so that
+    block-summing it back to the native grid reproduces the input kernel
+    (the same contract as lenstronomy's ``subgrid_kernel``, re-implemented).
+    """
+    kernel = np.asarray(kernel, np.float64)
+    kernel = kernel / kernel.sum()
+    if factor == 1:
+        return kernel.astype(np.float32)
+
+    fine = _bilinear_resample(kernel, factor, odd=odd)
+    fine = np.clip(fine, 0, None)
+    fine /= fine.sum()
+
+    for _ in range(num_iter):
+        coarse = _downsample_sum(fine, factor)
+        # align coarse grid back onto the input kernel's support
+        cc = coarse.shape[0]
+        if cc > kernel.shape[0]:
+            trim = (cc - kernel.shape[0]) // 2
+            coarse_c = coarse[trim : trim + kernel.shape[0], trim : trim + kernel.shape[0]]
+        else:
+            coarse_c = coarse
+        ratio = kernel / np.maximum(coarse_c, 1e-12)
+        correction = _bilinear_resample(ratio, factor, odd=odd)
+        if correction.shape != fine.shape:
+            t = (correction.shape[0] - fine.shape[0]) // 2
+            correction = correction[t : t + fine.shape[0], t : t + fine.shape[0]]
+        fine = np.clip(fine * correction, 0, None)
+        fine /= fine.sum()
+    return fine.astype(np.float32)
+
+
+def _good_fft_size(n: int) -> int:
+    """Next 5-smooth ("regular") integer >= n; XLA FFT likes small prime radix."""
+    if n <= 2:
+        return max(n, 1)
+    best = 1 << (n - 1).bit_length()  # next power of two as the fallback
+    p5 = 1
+    while p5 <= best:
+        p35 = p5
+        while p35 <= best:
+            m = p35
+            while m < n:
+                m *= 2
+            best = min(best, m)
+            p35 *= 3
+        p5 *= 5
+    return best
+
+
+# --------------------------------------------------------------------------
+# Device-side convolution
+# --------------------------------------------------------------------------
+
+class PSFConv:
+    """Batched 2-D convolution of (bs, H, W) images with a fixed kernel.
+
+    Both modes give 'SAME'-size output with true convolution orientation
+    (kernel flipped), matching the reference's ``lax.conv``; ``pool`` > 1
+    (dft mode only) folds the trailing average pool into the inverse
+    transform, so the conv emits (H/pool, W/pool) directly. Constants live
+    on ``device``.
+    """
+
+    def __init__(self, kernel: np.ndarray, img_shape, mode: str = "fft",
+                 pool: int = 1, device="cpu"):
+        self.kernel = np.asarray(kernel, np.float32)
+        if self.kernel.ndim != 2:
+            raise NotImplementedError(
+                "per-scene PSF stacks (survey mode) are not ported yet (ROADMAP M17)"
+            )
+        if mode not in ("dft", "fft"):
+            raise NotImplementedError(
+                f"PSF mode {mode!r} is not ported; use 'dft' or 'fft'"
+            )
+        self.kh, self.kw = self.kernel.shape
+        self.h, self.w = int(img_shape[0]), int(img_shape[1])
+        self.mode = mode
+        self.device = torch.device(device)
+        self.pool = int(pool) if mode == "dft" else 1
+        fh = _good_fft_size(self.h + self.kh - 1)
+        fw = _good_fft_size(self.w + self.kw - 1)
+        self.fshape = (fh, fw)
+        kpad = np.zeros((fh, fw), np.float64)
+        kpad[: self.kh, : self.kw] = self.kernel
+
+        if mode == "dft":
+            # The factors do no wasted work: the forward matrices are
+            # rectangular (fh, H) / (fw, W) slices (the zero padding
+            # contributes nothing), and the inverse matrices fold in the
+            # 'SAME' crop and, when pool > 1, the average pool.
+            kfft = np.fft.fft2(kpad)
+            self._k_re = kfft.real.astype(np.float32)
+            self._k_im = kfft.imag.astype(np.float32)
+
+            def dft(n):
+                return np.exp(-2j * np.pi * np.outer(np.arange(n), np.arange(n)) / n)
+
+            oy, ox = self.kh // 2, self.kw // 2
+            p = self.pool
+            if p > 1 and (self.h % p or self.w % p):
+                raise ValueError("pool must divide the image shape")
+
+            def fold(inv, off, size):
+                """Crop rows [off, off+size) and mean-pool blocks of p."""
+                sel = inv[off : off + size]
+                if p == 1:
+                    return sel
+                return sel.reshape(size // p, p, -1).mean(axis=1)
+
+            Fh = dft(fh)
+            Fw = dft(fw)
+            self._fh_re = Fh.real[:, : self.h].astype(np.float32).copy()
+            self._fh_im = Fh.imag[:, : self.h].astype(np.float32).copy()
+            self._fw_re = Fw.real[:, : self.w].astype(np.float32).copy()
+            self._fw_im = Fw.imag[:, : self.w].astype(np.float32).copy()
+            # inverse DFT = conj(F)/n, with crop (+pool) folded in
+            self._ih_re = fold(Fh.real / fh, oy, self.h).astype(np.float32)
+            self._ih_im = fold(-Fh.imag / fh, oy, self.h).astype(np.float32)
+            self._iw_re = fold(Fw.real / fw, ox, self.w).astype(np.float32)
+            self._iw_im = fold(-Fw.imag / fw, ox, self.w).astype(np.float32)
+            self.out_h, self.out_w = self.h // p, self.w // p
+            self._dft = DFTConv(
+                self._fh_re, self._fh_im, self._fw_re, self._fw_im,
+                self._k_re, self._k_im, self._ih_re, self._ih_im,
+                self._iw_re, self._iw_im, device=self.device,
+            )
+        else:
+            kfft = np.fft.rfft2(kpad)
+            # complex64 spectrum for float32 inputs (the JAX package's), the
+            # unrounded complex128 one for float64 inputs
+            self._kfft = {
+                torch.float32: torch.as_tensor(kfft.astype(np.complex64), device=self.device),
+                torch.float64: torch.as_tensor(kfft, device=self.device),
+            }
+            # 'SAME' crop offsets matching the flipped-kernel convolution
+            self._oy = self.kh // 2
+            self._ox = self.kw // 2
+            self.out_h, self.out_w = self.h, self.w
+
+    def _fft_conv(self, x):
+        xf = torch.fft.rfft2(x, s=self.fshape)
+        out = torch.fft.irfft2(xf * self._kfft[x.dtype], s=self.fshape)
+        return out[..., self._oy : self._oy + self.h, self._ox : self._ox + self.w]
+
+    def __call__(self, img):
+        """img: (..., H, W) -> convolved (..., out_h, out_w)."""
+        batch_shape = img.shape[:-2]
+        x = img.reshape(-1, self.h, self.w)
+        out = self._dft(x) if self.mode == "dft" else self._fft_conv(x)
+        return out.reshape(*batch_shape, self.out_h, self.out_w)
+
+
+def average_pool(img, factor: int):
+    """Non-overlapping mean pooling over the last two axes (reshape + mean)."""
+    if factor == 1:
+        return img
+    *b, h, w = img.shape
+    img = img.reshape(*b, h // factor, factor, w // factor, factor)
+    return img.mean(dim=(-3, -1))
