@@ -11,13 +11,24 @@
    the PSF conv at (500, 160, 160) and its transpose at (500, 80, 80)), on
    inputs drawn from the bench prior, and times kernel and twin with CUDA
    events.
-4. Runs the MAP phase of the bench scene (bench.py: EPL+Shear, SersicEllipse
+4. Checks the composable render's kernels the same way: K5 (summed) and K7
+   at the shapelet-source family's full width (family S: EPL(23)+Shear,
+   SersicEllipse lens light, Shapelets(6) source with sampled amplitudes;
+   bs=500, 25,600 pixels, 46 packed columns), K6 and K7's components mode
+   at the lstsq family's (family L: SersicEllipse[lstsq] +
+   Shapelets(4)[lstsq], 16 components), every stage once at a smaller
+   batch (six model families, as tests/test_fused_builder.py, and a
+   Taylor-series stage on seeded coefficient grids), and ragged shapes.
+5. Runs the MAP phase of the bench scene (bench.py: EPL+Shear, SersicEllipse
    lens light and source, 80x80 px at 0.065", supersample 2, the 25x25
    Gaussian fallback PSF) through ModellingSequence: truth from a seeded
    generator rendered by the port, noise at bkg 0.2 / exp_time 100, then
    multi-start Adam (50 steps) from 500 prior draws and best_map_start.
-   The kernels' launch counters are zeroed just before and read just after.
-5. Ends with the card line, a JSON line of per-kernel results and the ok
+   Then the same for family S (ForwardProbModel, K5/K7 + K4) and family L
+   (BackwardProbModel with lstsq_simulate, K6/K7 + K4 over 16 x 500
+   images). Each phase zeroes the launch counters just before it and reads
+   them just after.
+6. Ends with the card line, a JSON line of per-kernel results and the ok
    line.
 
 Every phase raises on failure (nothing is caught), so any failure exits
@@ -47,9 +58,26 @@ OMEGA_ATOL = 1e-4  # K2's angular series (|Omega| ~ 1)
 # with a very steep, bright source (gradients ~3e7), so the bound is 2e-3.
 GRAD_REL = 2e-3
 CONV_REL = 1e-4  # K4, of the output's max |value|
+# K5/K6 surface brightness against the float64 twin: the bounds of K1/K2,
+# for the same reasons (bench-prior Sersic lens light up to ~1e6 at its
+# center, steep sources amplifying the rounding of the ray-shot position).
+BUILDER_FWD_RTOL, BUILDER_FWD_ATOL = 1e-3, 2e-3
+# K7, per packed column, of the column's max |gradient| against float64
+# autograd of the twin: K3's bound, set by the float32 twin's own error.
+BUILDER_GRAD_REL = 2e-3
+# Coverage families, of the reference's max |value| / per-column max
+# |gradient|: 1e-4 for values (moderate uniform draws, no 1e6 centers; the
+# float32 twin is off its float64 self by up to ~3e-6 on them) and K3's
+# 2e-3 for gradients. The NFW family's deflections of several arcsec into
+# a steep Sersic amplify float32 rounding (tests/test_fused_builder.py
+# bounds it at 5e-4 / 5e-3 against the unfused render).
+COVER_TOL = {"nfw_ellipse_halo": (5e-4, 5e-3)}
+COVER_DEFAULT = (1e-4, 2e-3)
+COVER_BS = 16
 
 BS, NUM_PIX, SUPERSAMPLE, DELTA_PIX = 500, 80, 2, 0.065
 MAP_STEPS = 50
+FAMILY_NITER, SHAPELET_NMAX, LSTSQ_NMAX = 23, 6, 4
 
 
 def bench_prior():
@@ -95,6 +123,41 @@ def bench_scene():
     cfg = SimulatorConfig(delta_pix=DELTA_PIX, num_pix=NUM_PIX,
                           supersample=SUPERSAMPLE, kernel=psf)
     return phys, cfg, niter
+
+
+def family_prior(kind):
+    """Family S's prior (scripts/bench_fused_families.py:41-66: the bench
+    lens and lens light, a shapelet source with Normal(0, 50) amplitudes)
+    or family L's (the same without the linear amplitudes)."""
+    from gigalens_tpu_torch.prob import Prior
+    from gigalens_tpu_torch.prob import distributions as d
+
+    tree = bench_prior().tree
+    source = dict(beta=d.LogNormal(math.log(0.2), 0.2), center_x=d.Normal(0, 0.25),
+                  center_y=d.Normal(0, 0.25))
+    if kind == "S":
+        n = (SHAPELET_NMAX + 1) * (SHAPELET_NMAX + 2) // 2
+        source.update({f"amp{str(i).zfill(len(str(n)))}": d.Normal(0.0, 50.0) for i in range(n)})
+        return Prior(dict(lens_mass=tree["lens_mass"], lens_light=tree["lens_light"],
+                          source_light=[source]))
+    lens_light = {k: v for k, v in tree["lens_light"][0].items() if k != "Ie"}
+    return Prior(dict(lens_mass=tree["lens_mass"], lens_light=[lens_light],
+                      source_light=[source]))
+
+
+def family_model(kind):
+    """Family S: [EPL(23), Shear] + [SersicEllipse] + [Shapelets(6)];
+    family L: [EPL(23), Shear] + [SersicEllipse[lstsq]] + [Shapelets(4)[lstsq]]
+    (scripts/bench_fused_families.py:83-131)."""
+    from gigalens_tpu_torch import PhysicalModel
+    from gigalens_tpu_torch.profiles.light import SersicEllipse, Shapelets
+    from gigalens_tpu_torch.profiles.mass import EPL, Shear
+
+    if kind == "S":
+        return PhysicalModel([EPL(FAMILY_NITER), Shear()], [SersicEllipse()],
+                             [Shapelets(SHAPELET_NMAX)])
+    return PhysicalModel([EPL(FAMILY_NITER), Shear()], [SersicEllipse(use_lstsq=True)],
+                         [Shapelets(LSTSQ_NMAX, use_lstsq=True)])
 
 
 def cuda_ms(fn, reps=10, warmup=2):
@@ -314,34 +377,231 @@ def ragged_checks(params, x, y, niter, gen):
           f"{conv.fshape}): K1-K4 match their float64 twins", flush=True)
 
 
-def main_path(steps):
+def twin(spec, p, x, y, summed, extras=()):
+    from gigalens_tpu_torch.ops.cuda import fused_builder as fb
+
+    return fb.fused_builder_reference(spec, p, x, y, extras, summed)
+
+
+def autograd64(spec, p, x, y, ct, summed, extras=()):
+    """float64 torch autograd of the forward twin: <ct, render> -> d params."""
     import torch
 
-    from gigalens_tpu_torch.inference import ModellingSequence, optim
-    from gigalens_tpu_torch.model import ForwardProbModel
-    from gigalens_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    p = p.double().requires_grad_(True)
+    ex = tuple(e.double() for e in extras)
+    out = twin(spec, p, x.double(), y.double(), summed, ex)
+    return torch.autograd.grad((out * ct.double()).sum(), p)[0]
+
+
+def by_samples(fn, bs, step, summed, p, ct=None):
+    """fn over sample chunks of p (and of ct: dim 0 summed, dim 1 stacked)."""
+    import torch
+
+    outs = []
+    for i in range(0, bs, step):
+        args = [p[i:i + step]]
+        if ct is not None:
+            args.append(ct[i:i + step] if summed else ct[:, i:i + step])
+        outs.append(fn(*args))
+    return torch.cat(outs, dim=0 if summed or ct is not None else 1)
+
+
+def builder_checks():
+    """K5 and K7 at family S's full width, K6 and K7-components at family
+    L's; then every stage once (coverage) and ragged shapes."""
+    import torch
+
+    from gigalens_tpu_torch.ops.cuda import fused_builder as fb
     from gigalens_tpu_torch.simulator import LensSimulator
 
     dev = torch.device("cuda")
-    phys, cfg, _ = bench_scene()
-    prior = bench_prior()
-    truth = prior.sample(torch.Generator(device=dev).manual_seed(42), 1)
-    truth_img = LensSimulator(phys, cfg, bs=1, device=dev).simulate(truth)
-    noise_gen = torch.Generator(device=dev).manual_seed(1)
-    bkg, exp_time = 0.2, 100.0
-    obs = truth_img + torch.randn(truth_img.shape, generator=noise_gen, device=dev) * torch.sqrt(
-        bkg**2 + torch.clamp(truth_img, min=0.0) / exp_time)
-    if obs.shape != (NUM_PIX, NUM_PIX) or not torch.isfinite(obs).all():
-        raise AssertionError(f"bad observation: shape {tuple(obs.shape)}")
-    prob = ForwardProbModel(prior, obs.cpu().numpy(), background_rms=bkg,
-                            exp_time=exp_time, device=dev)
+    _, cfg, _ = bench_scene()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    kernels = []
+    for kind in ("S", "L"):
+        sim = LensSimulator(family_model(kind), cfg, bs=BS, device=dev)
+        spec = sim._fused_spec
+        if spec is None or sim._fused_niter is not None or not sim._use_fused:
+            raise AssertionError(f"family {kind} must take the builder tier")
+        summed = kind == "S"
+        params = spec.pack(family_prior(kind).sample(gen, BS)).contiguous()
+        x, y = sim.img_x, sim.img_y
+        npix = x.shape[0]
+        print(f"family {kind}: {spec.label}, bs={BS} npix={npix} n_cols={spec.n_cols} "
+              f"depth={spec.depth}", flush=True)
+        # forward: K5 (summed) or K6 (components)
+        out_k = fb.fused_builder_fwd(spec, params, x, y, (), summed)
+        torch.cuda.synchronize()
+        out64 = by_samples(lambda p: twin(spec, p.double(), x.double(), y.double(), summed),
+                           BS, 50, summed, params)
+        out32 = by_samples(lambda p: twin(spec, p, x, y, summed), BS, 100, summed, params)
+        check_close(f"K{5 if summed else 6} vs f32 twin", out_k, out32, BUILDER_FWD_RTOL,
+                    BUILDER_FWD_ATOL)
+        e_f = check_close(f"K{5 if summed else 6} vs f64 twin", out_k, out64,
+                          BUILDER_FWD_RTOL, BUILDER_FWD_ATOL)
+        del out64, out32
+        ms = cuda_ms(lambda: fb.fused_builder_fwd(spec, params, x, y, (), summed))
+        pms = cuda_ms(lambda: twin(spec, params, x, y, summed), reps=3, warmup=1)
+        name = "fused_builder_fwd summed (K5)" if summed else "fused_builder_fwd components (K6)"
+        kernels.append(dict(name=name, phase=kind,
+                            key="fused_builder_fwd_sum" if summed else "fused_builder_fwd_components",
+                            route="cuda", source="gigalens_tpu_torch/csrc/fused_builder.cu",
+                            replaces="gigalens_tpu/ops/pallas/fused_builder.py:612",
+                            max_abs_err=e_f, ms=ms, plain_ms=pms))
+        print(f"{name}: max|err| vs f64 {e_f:.3e}  kernel {ms:.3f} ms  twin {pms:.3f} ms",
+              flush=True)
+
+        # backward: K7 against f64 autograd and the f32 hand-VJP twin
+        ct = torch.randn(out_k.shape, generator=gen, device=dev)
+        del out_k
+        g_k = fb.fused_builder_bwd(spec, params, x, y, (), ct, summed)
+        torch.cuda.synchronize()
+        g64 = by_samples(lambda p, c: autograd64(spec, p, x, y, c, summed), BS, 25, summed,
+                         params, ct)
+        rel, e_b = check_rel(f"K7 ({kind}) vs f64 autograd of the twin", g_k, g64,
+                             BUILDER_GRAD_REL, dim=0)
+        g32 = by_samples(lambda p, c: fb.tile_backward_reference(spec, p, x, y, (), c, summed),
+                         BS, 50, summed, params, ct)
+        rel32, _ = check_rel(f"K7 ({kind}) vs f32 hand-VJP twin", g_k, g32, BUILDER_GRAD_REL,
+                             dim=0)
+        if not torch.equal(g_k, fb.fused_builder_bwd(spec, params, x, y, (), ct, summed)):
+            raise AssertionError(f"K7 ({kind}) is not deterministic from run to run")
+        ms = cuda_ms(lambda: fb.fused_builder_bwd(spec, params, x, y, (), ct, summed))
+        pms = cuda_ms(lambda: fb.tile_backward_reference(spec, params, x, y, (), ct, summed),
+                      reps=3, warmup=1)
+        name = "fused_builder_bwd" + (" (K7)" if summed else " components (K7)")
+        kernels.append(dict(name=name, phase=kind, key="fused_builder_bwd", route="cuda",
+                            source="gigalens_tpu_torch/csrc/fused_builder.cu",
+                            replaces="gigalens_tpu/ops/pallas/fused_builder.py:654",
+                            max_abs_err=e_b, ms=ms, plain_ms=pms))
+        print(f"{name}: col-rel err vs f64 autograd {rel:.3e} (vs f32 twin {rel32:.3e})  "
+              f"kernel {ms:.3f} ms  twin {pms:.3f} ms", flush=True)
+        del g64, g32, ct
+        builder_ragged(spec, params, x, y, summed, gen)
+    builder_coverage(dev, gen)
+    return kernels
+
+
+def builder_ragged(spec, params, x, y, summed, gen):
+    """3 samples x 1000 pixels through the image center (off the 256-pixel
+    tile grid): the kernels against the float64 twin and its autograd."""
+    import torch
+
+    from gigalens_tpu_torch.ops.cuda import fused_builder as fb
+
+    mid = x.shape[0] // 2
+    p, xr, yr = params[:3].contiguous(), x[mid - 500:mid + 500], y[mid - 500:mid + 500]
+    out = fb.fused_builder_fwd(spec, p, xr, yr, (), summed)
+    check_close("builder ragged forward", out,
+                twin(spec, p.double(), xr.double(), yr.double(), summed),
+                BUILDER_FWD_RTOL, BUILDER_FWD_ATOL)
+    ct = torch.randn(out.shape, generator=gen, device=out.device)
+    check_rel("builder ragged backward", fb.fused_builder_bwd(spec, p, xr, yr, (), ct, summed),
+              autograd64(spec, p, xr, yr, ct, summed), BUILDER_GRAD_REL, dim=0)
+    print(f"ragged shapes (3 samples x 1000 px, {'K5' if summed else 'K6'} and K7): "
+          "match the float64 twin", flush=True)
+
+
+def coverage_params(phys, bs, rng):
+    """Uniform draws per parameter name (tests/test_fused_builder.py ranges)."""
+    ranges = dict(theta_E=(0.5, 1.5), R_sersic=(0.5, 1.5), beta=(0.15, 0.35),
+                  e1=(-0.2, 0.2), e2=(-0.2, 0.2), gamma1=(-0.2, 0.2), gamma2=(-0.2, 0.2),
+                  n_sersic=(1.0, 4.0), Rs=(5.0, 15.0), alpha_Rs=(1.0, 4.0), Rb=(0.05, 0.2),
+                  alpha=(1.5, 3.0), Ie=(50.0, 200.0))
+    out = {"lens_mass": [], "lens_light": [], "source_light": []}
+    for g, profs, consts in (("lens_mass", phys.lenses, phys.lenses_constants),
+                             ("lens_light", phys.lens_light, phys.lens_light_constants),
+                             ("source_light", phys.source_light, phys.source_light_constants)):
+        for prof, cc in zip(profs, consts):
+            d = {}
+            for name in prof.params:
+                if name in cc:
+                    continue
+                lo, hi = ranges.get(name, (-1.0, 1.0) if name.startswith("amp") else (-0.3, 0.3))
+                if name == "gamma" and g == "lens_mass":
+                    lo, hi = 1.8, 2.2
+                d[name] = rng.uniform(lo, hi, bs)
+            out[g].append(d)
+    return out
+
+
+def builder_coverage(dev, gen):
+    """Every stage held against its float64 twin once, at a smaller batch."""
+    import numpy as np
+    import torch
+
+    from gigalens_tpu_torch import PhysicalModel
+    from gigalens_tpu_torch.interop import tree_to_torch
+    from gigalens_tpu_torch.ops.cuda import fused_builder as fb
+    from gigalens_tpu_torch.profiles.light import CoreSersic, Sersic, SersicEllipse, Shapelets
+    from gigalens_tpu_torch.profiles.mass import EPL, NFW, NFW_ELLIPSE, SIE, SIS, Shear
+
+    models = {
+        "legacy_pattern": PhysicalModel([EPL(18), Shear()], [SersicEllipse()],
+                                        [SersicEllipse()]),
+        "sie_sersic_shapelets": PhysicalModel([SIE(), Shear()], [Sersic()], [Shapelets(4)]),
+        "shapelet_source_only": PhysicalModel([EPL(18), Shear()], [], [Shapelets(5)]),
+        "sis_coresersic": PhysicalModel([SIS()], [CoreSersic()], [SersicEllipse()]),
+        "baked_constant_gamma": PhysicalModel([EPL(18), Shear()], [SersicEllipse()],
+                                              [SersicEllipse()],
+                                              lenses_constants=[dict(gamma=2.0), {}]),
+        "nfw_ellipse_halo": PhysicalModel([NFW_ELLIPSE(), NFW(), Shear()], [],
+                                          [SersicEllipse()]),
+    }
+    rng = np.random.default_rng(7)
+    x = torch.tensor(rng.uniform(-2.6, 2.6, 25_600), dtype=torch.float32, device=dev)
+    y = torch.tensor(rng.uniform(-2.6, 2.6, 25_600), dtype=torch.float32, device=dev)
+    cases = []
+    for name, phys in models.items():
+        spec = fb.build_spec(phys)
+        params = tree_to_torch(coverage_params(phys, COVER_BS, rng), device=dev)
+        cases.append((name, spec, spec.pack(params).contiguous(), ()))
+    # Taylor-series stage (its profile, MassSeries, is not ported yet): a
+    # spec from stage records and seeded coefficient grids, order 3
+    spec = fb.FusedSpec(
+        [fb.Stage(fb.SERIES, 0, order=3, extra=0), fb.Stage(fb.SHEAR, 2),
+         fb.Stage(fb.SERSIC_E, 4, is_source=True)],
+        [("lens_mass", 0, "dv"), ("lens_mass", 0, "amp"), ("lens_mass", 1, "gamma1"),
+         ("lens_mass", 1, "gamma2")] + [("source_light", 0, n) for n in SersicEllipse().params])
+    cols = [rng.uniform(-0.2, 0.2, COVER_BS), rng.uniform(0.5, 1.5, COVER_BS)] + [
+        rng.uniform(lo, hi, COVER_BS) for lo, hi in ((-0.05, 0.05), (-0.05, 0.05), (0.3, 0.6),
+                                                     (1.0, 3.0), (-0.2, 0.2), (-0.2, 0.2),
+                                                     (-0.2, 0.2), (-0.2, 0.2), (50, 100))]
+    grid = torch.tensor(rng.normal(0, 0.3, (8, x.shape[0])), dtype=torch.float32, device=dev)
+    cases.append(("series_stage", spec,
+                  torch.tensor(np.stack(cols, -1), dtype=torch.float32, device=dev), (grid,)))
+    worst = []
+    for name, spec, p, ex in cases:
+        tol_v, tol_g = COVER_TOL.get(name, COVER_DEFAULT)
+        got = fb.fused_builder_fwd(spec, p, x, y, ex, True)
+        want = twin(spec, p.double(), x.double(), y.double(), True,
+                    tuple(e.double() for e in ex))
+        rv, _ = check_rel(f"K5 coverage {name}", got, want, tol_v)
+        ct = torch.randn(got.shape, generator=gen, device=dev)
+        rg, _ = check_rel(f"K7 coverage {name}", fb.fused_builder_bwd(spec, p, x, y, ex, ct),
+                          autograd64(spec, p, x, y, ct, True, ex), tol_g, dim=0)
+        worst.append(f"{name} {rv:.1e}/{rg:.1e}")
+    print("coverage (every stage, bs=16, 25,600 px; value / gradient rel err vs f64): "
+          + ", ".join(worst), flush=True)
+
+
+def map_phase(label, phys, prob, prior, cfg, steps, check_sim, need):
+    """Multi-start MAP (``steps`` Adam steps from BS prior draws) through
+    ModellingSequence; launch counters zeroed just before, read just after.
+    Returns the counts; raises unless min reduced chi2 is finite and falls
+    and every kernel in ``need`` launched."""
+    import torch
+
+    from gigalens_tpu_torch.inference import ModellingSequence, optim
+    from gigalens_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    dev = torch.device("cuda")
     seq = ModellingSequence(phys, prob, cfg, device=dev)
     opt = optim.chain(optim.scale_by_adam(), optim.scale_by_schedule(
         optim.polynomial_schedule(-1e-2, -1e-2 / 3, 0.5, steps)))
     start = prior.unconstrain(prior.sample(torch.Generator(device=dev).manual_seed(0), BS))
     sim = seq._sim(BS)
-    if not sim._use_fused or sim._conv.mode != "dft":
-        raise AssertionError("the MAP simulator must take the fused kernel and the dft conv")
+    check_sim(sim)
 
     torch.cuda.synchronize()
     reset_launch_counts()
@@ -360,21 +620,92 @@ def main_path(steps):
     peak = torch.cuda.max_memory_allocated()
 
     chi_n = float(torch.where(torch.isnan(chi), torch.inf, chi).min())
-    print(f"MAP: {steps} steps at bs={BS}: {1e3 * wall / steps:.3f} ms/step "
+    print(f"MAP {label}: {steps} steps at bs={BS}: {1e3 * wall / steps:.3f} ms/step "
           f"(host clock over the whole phase), peak device memory "
           f"{peak / 2**30:.3f} GiB", flush=True)
-    print(f"MAP: min reduced chi2 step 0 {chi0:.4f} -> step {steps} {chi_n:.4f}", flush=True)
-    print(f"launch counts over the main path: {json.dumps(counts)}", flush=True)
+    print(f"MAP {label}: min reduced chi2 step 0 {chi0:.4f} -> step {steps} {chi_n:.4f}",
+          flush=True)
+    print(f"MAP {label}: launch counts {json.dumps(counts)}", flush=True)
     if z.shape != (BS, prior.d) or not torch.isfinite(z).all():
-        raise AssertionError(f"MAP output not finite / wrong shape {tuple(z.shape)}")
+        raise AssertionError(f"MAP {label} output not finite / wrong shape {tuple(z.shape)}")
     if best.shape != (1, prior.d) or not torch.isfinite(best).all():
-        raise AssertionError("best_map_start output not finite / wrong shape")
+        raise AssertionError(f"MAP {label}: best_map_start output not finite / wrong shape")
     if not (math.isfinite(chi_n) and chi_n < chi0):
-        raise AssertionError(f"min reduced chi2 did not decrease: {chi0} -> {chi_n}")
-    missing = [k for k, v in counts.items() if v <= 0]
+        raise AssertionError(f"MAP {label}: min reduced chi2 did not decrease: {chi0} -> {chi_n}")
+    missing = [k for k in need if counts[k] <= 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
+        raise AssertionError(f"kernels never launched in the {label} MAP phase: {missing}")
     return counts
+
+
+def observe(img, gen, bkg=0.2, exp_time=100.0):
+    """Gaussian + Poisson noise at bkg 0.2 / exp_time 100, as bench.py."""
+    import torch
+
+    obs = img + torch.randn(img.shape, generator=gen, device=img.device) * torch.sqrt(
+        bkg**2 + torch.clamp(img, min=0.0) / exp_time)
+    if obs.shape != (NUM_PIX, NUM_PIX) or not torch.isfinite(obs).all():
+        raise AssertionError(f"bad observation: shape {tuple(obs.shape)}")
+    return obs
+
+
+def problem(kind):
+    """(phys, prob, prior, cfg) of a MAP phase: the bench scene ("bench"),
+    family S ("S": ForwardProbModel) or family L ("L": BackwardProbModel).
+    The truth is a seeded prior draw rendered by the port, observed with
+    bench.py's noise (family L's amplitudes: a bench-like lens light and
+    Normal(0, 50) shapelets)."""
+    import torch
+
+    from gigalens_tpu_torch.model import BackwardProbModel, ForwardProbModel
+    from gigalens_tpu_torch.simulator import LensSimulator
+
+    dev = torch.device("cuda")
+    phys, cfg, _ = bench_scene()
+    prior = bench_prior()
+    if kind != "bench":
+        phys, prior = family_model(kind), family_prior(kind)
+    gen = torch.Generator(device=dev).manual_seed(42)
+    truth = prior.sample(gen, 1)
+    sim = LensSimulator(phys, cfg, bs=1, device=dev)
+    noise = torch.Generator(device=dev).manual_seed(1)
+    if kind != "L":
+        obs = observe(sim.simulate(truth), noise)
+        return phys, ForwardProbModel(prior, obs.cpu().numpy(), background_rms=0.2,
+                                      exp_time=100.0, device=dev), prior, cfg
+    ones = torch.ones((NUM_PIX, NUM_PIX), device=dev)
+    stack = sim.lstsq_simulate(truth, ones, ones, return_stacked=True)[0]  # (H, W, 16)
+    amps = torch.cat([torch.full((1,), 500.0, device=dev),
+                      50.0 * torch.randn((stack.shape[-1] - 1,), generator=gen, device=dev)])
+    obs = observe(stack @ amps, noise)
+    return phys, BackwardProbModel(prior, obs.cpu().numpy(), background_rms=0.2,
+                                   exp_time=100.0, device=dev), prior, cfg
+
+
+def main_path(steps):
+    """The bench scene's MAP phase (K1-K4)."""
+
+    def check(sim):
+        if not sim._use_fused or sim._fused_niter is None or sim._conv.mode != "dft":
+            raise AssertionError("the MAP simulator must take K1-K3 and the dft conv")
+
+    need = ("fused_render_fwd", "fused_render_fwd_omega", "fused_render_bwd",
+            "dft_conv_fwd", "dft_conv_transpose")
+    return map_phase("bench", *problem("bench"), steps, check, need)
+
+
+def builder_check(sim):
+    if not sim._use_fused or sim._fused_spec is None or sim._conv.mode != "dft":
+        raise AssertionError("the family's simulator must take the builder and the dft conv")
+
+
+def family_path(kind, steps):
+    """Family S's MAP phase (ForwardProbModel through K5/K7 and K4) or
+    family L's (BackwardProbModel and lstsq_simulate through K6/K7 and K4,
+    16 components x BS images per conv)."""
+    fwd = "fused_builder_fwd_sum" if kind == "S" else "fused_builder_fwd_components"
+    need = (fwd, "fused_builder_bwd", "dft_conv_fwd", "dft_conv_transpose")
+    return map_phase(f"family {kind}", *problem(kind), steps, builder_check, need)
 
 
 def main():
@@ -399,10 +730,14 @@ def main():
             print(f"  ptxas: {line.strip()}", flush=True)
     _build.load()
 
-    kernels = kernel_checks()
-    counts = main_path(MAP_STEPS)
+    kernels = [dict(k, phase="bench") for k in kernel_checks()] + builder_checks()
+    counts = {"bench": main_path(MAP_STEPS), "S": family_path("S", MAP_STEPS),
+              "L": family_path("L", MAP_STEPS)}
+    # launches: each kernel's count in the MAP phase of its row (K1-K4 the
+    # bench scene, K5 and K7 family S, K6 and K7-components family L)
     out = [
-        {k: v for k, v in dict(kern, launches=counts[kern["key"]]).items() if k != "key"}
+        {k: v for k, v in dict(kern, launches=counts[kern["phase"]][kern["key"]]).items()
+         if k not in ("key", "phase")}
         for kern in kernels
     ]
     print(card)

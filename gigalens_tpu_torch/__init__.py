@@ -1,8 +1,9 @@
 """gigalens_tpu_torch — the PyTorch/CUDA port of :mod:`gigalens_tpu`.
 
 Module paths mirror the JAX package so each counterpart is easy to find.
-The hot path (the fused EPL+Shear+Sersic render, forward and backward, and
-the DFT-by-matmul PSF convolution) runs as hand-written CUDA kernels for
+The hot path (the fused EPL+Shear+Sersic render and the composable fused
+render for every other supported model, forward and backward, and the
+DFT-by-matmul PSF convolution) runs as hand-written CUDA kernels for
 Hopper (``csrc/``), built with ``nvcc`` at first use; every kernel has a
 plain PyTorch twin in the same module, which the wrapper takes for CPU
 tensors only.

@@ -51,6 +51,47 @@ def prior_from_reference(prior) -> Prior:
     return Prior(_map_tree(prior.tree, _port_distribution))
 
 
+def _port_profile(prof):
+    """The port's profile of the same class name and static settings."""
+    from gigalens_tpu_torch.profiles.light import CoreSersic, Sersic, SersicEllipse, Shapelets
+    from gigalens_tpu_torch.profiles.mass import EPL, NFW, NFW_ELLIPSE, SIE, SIS, Shear
+
+    name = type(prof).__name__
+    if name == "EPL":
+        return EPL(prof.niter)
+    if name == "Shapelets":
+        return Shapelets(prof.n_max, use_lstsq=prof.use_lstsq)
+    light = {"Sersic": Sersic, "SersicEllipse": SersicEllipse, "CoreSersic": CoreSersic}
+    if name in light:
+        return light[name](use_lstsq=prof.use_lstsq)
+    mass = {"Shear": Shear, "SIS": SIS, "SIE": SIE, "NFW": NFW, "NFW_ELLIPSE": NFW_ELLIPSE}
+    if name in mass:
+        return mass[name]()
+    raise NotImplementedError(f"profile {name} is not ported yet")
+
+
+def phys_model_from_reference(phys):
+    """The port's equivalent of a ``gigalens_tpu`` PhysicalModel: each
+    profile by class name (with ``niter``, ``n_max`` and ``use_lstsq``), and
+    the same fixed constants."""
+    from gigalens_tpu_torch.model import PhysicalModel
+
+    if getattr(phys, "mp_factors", None) is not None:
+        raise NotImplementedError("multi-plane lensing is not ported yet (ROADMAP M14)")
+
+    def consts(cs):
+        return [{k: np.array(v) for k, v in d.items()} for d in cs]
+
+    return PhysicalModel(
+        [_port_profile(p) for p in phys.lenses],
+        [_port_profile(p) for p in phys.lens_light],
+        [_port_profile(p) for p in phys.source_light],
+        lenses_constants=consts(phys.lenses_constants),
+        lens_light_constants=consts(phys.lens_light_constants),
+        source_light_constants=consts(phys.source_light_constants),
+    )
+
+
 def sim_config_from_reference(cfg) -> SimulatorConfig:
     """The port's copy of a ``gigalens_tpu`` SimulatorConfig."""
 

@@ -4,6 +4,8 @@
 * :class:`ForwardProbModel` scores pixels with the forward-modeled
   Gaussian+Poisson noise map. The position, time-delay and flux
   likelihoods are not ported yet (ROADMAP M14) and raise.
+* :class:`BackwardProbModel` scores pixels with the observed-image noise
+  map and linear (lstsq) light amplitudes.
 
 Log-densities are computed on the unconstrained matrix ``z`` of shape
 ``(bs, d)``; ``prior.constrain(z)`` maps it to the physical params tree and
@@ -148,6 +150,52 @@ class ForwardProbModel(VersionedAttrs):
         log_like, red_chi2 = self.stats_pixels(simulator, x)
         log_prior = self.prior.log_prob(x) + self.prior.fldj(z)
         return log_like + log_prior, red_chi2
+
+    def log_like(self, simulator, z):
+        return self.stats_pixels(simulator, self.prior.constrain(z))[0]
+
+
+class BackwardProbModel(VersionedAttrs):
+    """Likelihood with observed-image noise and lstsq linear amplitudes
+    (pixels only: its position likelihood raises, as in JAX)."""
+
+    def __init__(self, prior: Prior, observed_image, background_rms, exp_time, device="cpu"):
+        self.prior = prior
+        self.device = torch.device(device)
+        obs = torch.as_tensor(np.asarray(observed_image, np.float32), device=self.device)
+        err_map = torch.sqrt(float(background_rms) ** 2
+                             + torch.clamp(obs, min=0.0) / float(exp_time))
+        self.observed_image = obs
+        self.err_map = err_map
+        self._log_norm = -0.5 * torch.sum(torch.log(2 * math.pi * err_map**2))
+
+    def event_size(self, simulator) -> int:
+        """Number of observed scalars; normalizes the MAP loss."""
+        return simulator.n_live_pix
+
+    def stats_pixels(self, simulator, params):
+        """(log_like, reduced_chi2) of the pixel data for constrained params;
+        the linear amplitudes are solved by weighted least squares."""
+        im_sim = simulator.lstsq_simulate(params, self.observed_image, self.err_map)
+        resid = (im_sim - self.observed_image) / self.err_map
+        chi2_pix = resid**2
+        log_like = -0.5 * torch.sum(chi2_pix, dim=(-2, -1)) + self._log_norm
+        return log_like, torch.mean(chi2_pix, dim=(-2, -1))
+
+    def stats_positions(self, simulator, params):
+        raise NotImplementedError(
+            "BackwardProbModel has no multiple-image position likelihood; "
+            "use ForwardProbModel for position terms (ROADMAP M14)"
+        )
+
+    def log_prob(self, simulator, z):
+        """Unconstrained log posterior and reduced chi2; z shaped (bs, d)."""
+        x = self.prior.constrain(z)
+        log_like, red_chi2 = self.stats_pixels(simulator, x)
+        log_prior = self.prior.log_prob(x) + self.prior.fldj(z)
+        batch = z.shape[:-1]  # bs = 1 squeezes to scalars; match the batch
+        return (torch.broadcast_to(log_like + log_prior, batch),
+                torch.broadcast_to(red_chi2, batch))
 
     def log_like(self, simulator, z):
         return self.stats_pixels(simulator, self.prior.constrain(z))[0]

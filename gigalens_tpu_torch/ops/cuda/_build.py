@@ -1,11 +1,12 @@
 """Builds the hand-written CUDA kernels at first use and binds them with ctypes.
 
-``nvcc`` compiles every ``gigalens_tpu_torch/csrc/*.cu`` into one shared
-library with a plain C interface, under ``build/kernels/`` beside the
-package, named by a hash of the sources and flags (a changed source is a
-new library). No PyTorch headers are involved, so a build takes seconds.
-A missing ``nvcc`` or a failed compile raises with the compiler's output:
-there is no fallback.
+``nvcc`` compiles every ``gigalens_tpu_torch/csrc/*.cu`` into an object,
+one process per source, all started together, and links the objects into
+one shared library with a plain C interface, under ``build/kernels/``
+beside the package, named by a hash of the sources and flags (a changed
+source is a new library). No PyTorch headers are involved, so a build takes
+seconds. A missing ``nvcc`` or a failed compile raises with the compiler's
+output: there is no fallback.
 
 Fast math stays off (no ``--use_fast_math``): the kernels' tolerances
 assume IEEE ``expf``/``logf``/``sqrtf``.
@@ -29,7 +30,7 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
 FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 ]
 
 _P = ctypes.c_void_p
@@ -42,6 +43,12 @@ SIGNATURES = {
     # x, out, t1 (re, im), z (re, im), u (re, im), 10 factors,
     # bs, H, W, fh, fw, oh, ow, stream
     "gl_dft_conv": [_P] * 18 + [_I] * 7 + [_P],
+    # params, x, y, extras, out, records, n_mass, n_light, prefactors,
+    # bs, npix, n_cols, summed, stream
+    "gl_fused_builder_fwd": [_P] * 6 + [_I, _I, _P] + [_I] * 4 + [_P],
+    # params, x, y, extras, ct, partial, records, n_mass, n_light,
+    # prefactors, bs, npix, n_cols, summed, stream
+    "gl_fused_builder_bwd": [_P] * 7 + [_I, _I, _P] + [_I] * 4 + [_P],
 }
 
 
@@ -87,14 +94,27 @@ def build(verbose: bool = False) -> tuple[Path, float, str]:
         return lib, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *FLAGS, *extra, "-o", str(tmp), *map(str, cu)]
+    nvcc = _nvcc()
+    tag = f"{lib.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in cu]
     t0 = time.perf_counter()
+    cmds = [[nvcc, *FLAGS, *extra, "-c", "-o", str(o), str(src)] for src, o in zip(cu, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]  # waits for every compile
+    log = "".join(logs)
+    for cmd, proc, out in zip(cmds, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
+    cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
     res = subprocess.run(cmd, capture_output=True, text=True)
+    for o in objs:
+        o.unlink()
     secs = time.perf_counter() - t0
-    log = res.stdout + res.stderr
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{log}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{' '.join(cmd)}\n"
+                           f"{res.stdout}{res.stderr}")
     os.replace(tmp, lib)  # atomic: a concurrent build never loads a partial file
     return lib, secs, log
 

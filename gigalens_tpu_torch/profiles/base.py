@@ -43,9 +43,9 @@ class MassProfile(Parameterized, ABC):
 class LightProfile(Parameterized, ABC):
     """Interface for a light (surface-brightness) profile.
 
-    ``use_lstsq`` marks the amplitude as a linear parameter solved by least
-    squares instead of being sampled; the simulator does not take such
-    profiles yet (ROADMAP M13).
+    ``use_lstsq`` marks the amplitude(s) as linear parameters solved by the
+    simulator's weighted least squares instead of being sampled; ``depth`` is
+    the number of linear components this profile contributes.
     """
 
     _amp = "Ie"
@@ -53,6 +53,9 @@ class LightProfile(Parameterized, ABC):
     def __init__(self, use_lstsq: bool = False, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self._use_lstsq = bool(use_lstsq)
+        self.depth = 1
+        # profiles with numbered amplitudes (shapelets) set _amp = "" and
+        # manage their own amplitude params
         if self._amp and not self._use_lstsq and self._amp not in self.params:
             self.params.append(self._amp)
 
@@ -60,9 +63,20 @@ class LightProfile(Parameterized, ABC):
     def use_lstsq(self) -> bool:
         return self._use_lstsq
 
+    @use_lstsq.setter
+    def use_lstsq(self, use_lstsq: bool):
+        if self._amp:
+            if use_lstsq and not self._use_lstsq:
+                self.params.remove(self._amp)
+            elif not use_lstsq and self._use_lstsq:
+                self.params.append(self._amp)
+        self._use_lstsq = bool(use_lstsq)
+
     @abstractmethod
     def light(self, x, y, **params):
-        """Surface brightness at (x, y), broadcast over (batch..., pixels)."""
+        """Surface brightness at (x, y), broadcast over (batch..., pixels);
+        in lstsq mode a leading component axis of size ``depth`` is
+        prepended instead of multiplying by the amplitude."""
 
 
 def rotate(x, y, phi):

@@ -1,3 +1,4 @@
-from gigalens_tpu_torch.profiles.light.sersic import Sersic, SersicEllipse
+from gigalens_tpu_torch.profiles.light.sersic import CoreSersic, Sersic, SersicEllipse
+from gigalens_tpu_torch.profiles.light.shapelets import Shapelets
 
-__all__ = ["Sersic", "SersicEllipse"]
+__all__ = ["CoreSersic", "Sersic", "SersicEllipse", "Shapelets"]

@@ -54,3 +54,21 @@ class SersicEllipse(Sersic):
         R = _elliptical_radius(x, y, center_x, center_y, e1, e2)
         ret = torch.exp(-_b_n(n_sersic) * ((R / R_sersic) ** (1.0 / n_sersic) - 1.0))
         return ret[None] if self.use_lstsq else Ie * ret
+
+
+class CoreSersic(Sersic):
+    _name = "CORE_SERSIC"
+    _params = ["R_sersic", "n_sersic", "Rb", "alpha", "gamma", "e1", "e2",
+               "center_x", "center_y"]
+
+    def light(self, x, y, R_sersic, n_sersic, Rb, alpha, gamma, e1, e2,
+              center_x, center_y, Ie=None):
+        R = _elliptical_radius(x, y, center_x, center_y, e1, e2)
+        # canonical Core-Sersic (Graham et al. 2003, normalized so
+        # I(R_sersic) = Ie), with the 1/(alpha n) exponent as the JAX
+        # package has it
+        u = (R**alpha + Rb**alpha) / R_sersic**alpha
+        ret = (1 + (Rb / R) ** alpha) ** (gamma / alpha) * torch.exp(
+            -_b_n(n_sersic) * (u ** (1.0 / (alpha * n_sersic)) - 1.0)
+        )
+        return ret[None] if self.use_lstsq else Ie * ret

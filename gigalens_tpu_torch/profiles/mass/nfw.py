@@ -1,0 +1,111 @@
+"""NFW-family deflectors (port of :mod:`gigalens_tpu.profiles.mass.nfw`,
+``deriv`` of NFW and NFW_ELLIPSE only).
+
+Wright & Brainerd (2000) g(x). Every piecewise function is a total
+``torch.where`` with branch-safe inputs, so values and gradients stay finite
+everywhere. TNFW, ``_nfw_h``/``_nfw_f`` and the hessians are not ported yet
+(ROADMAP M12, M14).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from gigalens_tpu_torch.profiles.base import MassProfile, ellipticity_to_polar, rotate
+
+_R_MIN = 1e-7
+_X_MIN = 1e-6
+
+# Near the branch point x = 1 both closed forms cancel catastrophically in
+# float32; within |x-1| < delta the two-sided Taylor series at x = 1 takes
+# over: g = (1 - log 2) + t/3 - t^2/30 - t^3/105 + 17 t^4/1260 (t = x-1).
+_BRANCH_DELTA = 0.03
+_SMALL_X = 0.05
+_G_SERIES = (0.30685281944005469, 1 / 3, -1 / 30, -1 / 105, 17 / 1260)
+
+
+def _horner(t, coeffs):
+    acc = torch.full_like(t, coeffs[-1])
+    for c in coeffs[-2::-1]:
+        acc = acc * t + c
+    return acc
+
+
+def _branch_inputs(x):
+    """Branch-safe inputs for the two closed forms, clamped at the series
+    window's edges, not at x = 1: the series is selected for |x-1| < delta,
+    so the closed forms only ever see x outside the window and both value
+    and gradient stay finite. The edges themselves (x = 1 -/+ delta) keep
+    their own input (``<=``/``>=``): with strict inequalities a float64
+    x of exactly 1 -/+ delta would get the placeholder (ROADMAP F-ref-2)."""
+    x_lo = torch.where(x <= 1.0 - _BRANCH_DELTA, x, torch.full_like(x, 0.5))
+    x_hi = torch.where(x >= 1.0 + _BRANCH_DELTA, x, torch.full_like(x, 2.0))
+    return x_lo, x_hi
+
+
+def _nfw_g(x):
+    """g(x) such that alpha = 4 rho0 Rs g(x)/x * x_hat; g(1) = 1 + log(1/2).
+
+    Series regions around the x = 1 branch point and below x = 0.05, where
+    the closed form cancels catastrophically in float32:
+    g = x^2 (L/2 - 1/4) + x^4 (3L/8 - 7/32), L = log(2/x)."""
+    x = torch.clamp(x, min=_X_MIN)
+    near = torch.abs(x - 1.0) < _BRANCH_DELTA
+    small = x < _SMALL_X
+    x_lo, x_hi = _branch_inputs(x)
+    lo = torch.log(x / 2.0) + torch.arccosh(1.0 / x_lo) / torch.sqrt(1.0 - x_lo**2)
+    hi = torch.log(x / 2.0) + torch.arccos(1.0 / x_hi) / torch.sqrt(x_hi**2 - 1.0)
+    series = _horner(x - 1.0, _G_SERIES)
+    L = torch.log(2.0 / x)
+    small_series = x**2 * (0.5 * L - 0.25) + x**4 * (0.375 * L - 7.0 / 32.0)
+    return torch.where(
+        small, small_series, torch.where(near, series, torch.where(x < 1, lo, hi))
+    )
+
+
+class NFW(MassProfile):
+    _name = "NFW"
+    _params = ["Rs", "alpha_Rs", "center_x", "center_y"]
+
+    @staticmethod
+    def _rho0(Rs, alpha_Rs):
+        """Characteristic density from the deflection at Rs."""
+        return alpha_Rs / (4.0 * Rs**2 * (1.0 - math.log(2.0)))
+
+    def _alpha_radial(self, R, Rs, rho0, ax_x, ax_y):
+        R = torch.clamp(R, min=_R_MIN)
+        Rs = torch.clamp(torch.as_tensor(Rs), min=_R_MIN)
+        x = R / Rs
+        a = 4.0 * rho0 * Rs * _nfw_g(x) / x**2
+        return a * ax_x, a * ax_y
+
+    def deriv(self, x, y, Rs, alpha_Rs, center_x, center_y):
+        rho0 = self._rho0(Rs, alpha_Rs)
+        dx, dy = x - center_x, y - center_y
+        R = torch.sqrt(dx**2 + dy**2)
+        return self._alpha_radial(R, Rs, rho0, dx, dy)
+
+
+class NFW_ELLIPSE(MassProfile):
+    """Ellipticity introduced by stretching coordinates around spherical NFW."""
+
+    _name = "NFW_ELLIPSE"
+    _params = ["Rs", "alpha_Rs", "e1", "e2", "center_x", "center_y"]
+
+    def __init__(self):
+        super().__init__()
+        self._nfw = NFW()
+
+    def deriv(self, x, y, Rs, alpha_Rs, e1, e2, center_x, center_y):
+        rho0 = NFW._rho0(Rs, alpha_Rs)
+        _, q, phi = ellipticity_to_polar(e1, e2)
+        e = torch.abs(1 - q**2) / (1 + q**2)
+
+        x, y = rotate(x - center_x, y - center_y, phi)
+        xs, ys = x * torch.sqrt(1 - e), y * torch.sqrt(1 + e)
+        R = torch.sqrt(xs**2 + ys**2)
+        fx, fy = self._nfw._alpha_radial(R, Rs, rho0, xs, ys)
+        fx = fx * torch.sqrt(1 - e)
+        fy = fy * torch.sqrt(1 + e)
+        return rotate(fx, fy, -phi)

@@ -1,0 +1,55 @@
+"""Singular isothermal ellipsoid (SIE) and sphere (SIS) deflectors (port of
+:mod:`gigalens_tpu.profiles.mass.sie`, ``deriv`` only).
+
+Closed forms of Kormann et al. (1994). NIE, ``potential`` and ``hessian``
+are not ported yet (ROADMAP M12, M14).
+"""
+from __future__ import annotations
+
+import torch
+
+from gigalens_tpu_torch.profiles.base import MassProfile, ellipticity_to_polar, rotate
+
+
+def _kormann_deriv(x, y, theta_E, q, phi, s_scale, center_x, center_y):
+    """Kormann (1994) cored isothermal-ellipsoid deflection in the rotated
+    frame; ``s_scale = 0`` is the singular (SIE) case."""
+    # intermediate-axis normalization of theta_E
+    b = theta_E * torch.sqrt(2 * q / (1 + q**2)) * torch.sqrt((1 + q**2) / 2)
+    s = s_scale * torch.sqrt((1 + q**2) / (2 * q**2))
+
+    x, y = rotate(x - center_x, y - center_y, phi)
+    psi = torch.sqrt(q**2 * (s**2 + x**2) + y**2)
+    # Floor 1 - q^2: at exactly e1 = e2 = 0 float32 rounds q to 1.0 and the
+    # raw sqrt gives root = 0, so b/root * arctan(0) = inf * 0 = NaN. With
+    # the floor, arctan(root*u)/root resolves to the SIS limit b*x/psi, and
+    # the clamp kills the spurious infinite dq branch of the gradient.
+    root = torch.sqrt(torch.clamp(1.0 - q**2, min=1e-10))
+    fx = b / root * torch.arctan(root * x / (psi + s))
+    fy = b / root * torch.arctanh(root * y / (psi + q**2 * s))
+    return rotate(fx, fy, -phi)
+
+
+class SIE(MassProfile):
+    _name = "SIE"
+    _params = ["theta_E", "e1", "e2", "center_x", "center_y"]
+
+    # softening used only to keep the q -> 1 limit finite
+    s_scale = 0.0
+
+    def deriv(self, x, y, theta_E, e1, e2, center_x, center_y):
+        _, q, phi = ellipticity_to_polar(e1, e2)
+        return _kormann_deriv(x, y, theta_E, q, phi, self.s_scale, center_x, center_y)
+
+
+class SIS(MassProfile):
+    _name = "SIS"
+    _params = ["theta_E", "center_x", "center_y"]
+
+    def deriv(self, x, y, theta_E, center_x, center_y):
+        dx, dy = x - center_x, y - center_y
+        r = torch.sqrt(dx**2 + dy**2)
+        # r = 0 guard: zero deflection at the center, zero gradient there
+        zero = r == 0
+        a = torch.where(zero, torch.zeros_like(r), theta_E / torch.where(zero, torch.ones_like(r), r))
+        return a * dx, a * dy

@@ -9,11 +9,13 @@ Parameter convention: ``params`` is a dict with keys ``lens_mass``,
 leaves are shaped ``(bs,)``; leaves broadcast against the ``(npix,)``
 coordinates as ``(bs, 1)``.
 
-For the EPL+Shear + SersicEllipse (+ SersicEllipse lens light) family the
-whole flat-light render runs as the fused CUDA kernel on a CUDA device
-(``ops/cuda/fused_render.py``). Not ported yet: multi-plane ray tracing,
-the lensing-field helpers (hessian, magnification, potential), the
-composable fused builder, SIE-as-EPL(gamma=2) fusion and ``lstsq_simulate``.
+Two fused tiers render the whole flat light on a CUDA device, as in JAX:
+the [EPL|SIE, Shear] + SersicEllipse family runs K1-K3
+(``ops/cuda/fused_render.py``), every other composition the builder covers
+(shapelets, SIS, CoreSersic, NFW halos, baked constants, lstsq component
+stacks) runs K5-K7 (``ops/cuda/fused_builder.py``). Not ported yet:
+multi-plane ray tracing, the lensing-field helpers (hessian,
+magnification, potential) and scene-batched (survey) lstsq data.
 """
 from __future__ import annotations
 
@@ -24,11 +26,13 @@ import torch
 
 import gigalens_tpu_torch.model as gmodel
 from gigalens_tpu_torch.config import LensWCS, SimulatorConfig
+from gigalens_tpu_torch.ops.cuda import fused_builder
 from gigalens_tpu_torch.ops.cuda.fused_render import fused_render, pack_params
 from gigalens_tpu_torch.ops.psf import PSFConv, average_pool, subgrid_kernel
 from gigalens_tpu_torch.profiles.light.sersic import SersicEllipse
 from gigalens_tpu_torch.profiles.mass.epl import EPL
 from gigalens_tpu_torch.profiles.mass.shear import Shear
+from gigalens_tpu_torch.profiles.mass.sie import SIE
 
 
 def _batched(p: Dict):
@@ -47,10 +51,6 @@ class LensSimulator(gmodel.VersionedAttrs):
         bs: int,
         device="cpu",
     ):
-        if any(p.use_lstsq for p in phys_model.lens_light + phys_model.source_light):
-            raise NotImplementedError(
-                "linear (lstsq) light amplitudes are not ported yet (ROADMAP M13)"
-            )
         self.phys_model = phys_model
         self.sim_config = sim_config
         self.bs = int(bs)
@@ -94,6 +94,8 @@ class LensSimulator(gmodel.VersionedAttrs):
             self.n_live_pix = int(np.count_nonzero(img_region))
         self.img_x = dev(img_x)  # (npix,)
         self.img_y = dev(img_y)
+        # linear (lstsq) component count
+        self.depth = sum(p.depth for p in phys_model.lens_light + phys_model.source_light)
 
         def consts(cs):
             return [{k: v.to(self.device) for k, v in d.items()} for d in cs]
@@ -123,34 +125,53 @@ class LensSimulator(gmodel.VersionedAttrs):
             )
 
         # ---- fused render -----------------------------------------------------
+        # two tiers: the bench kernel (K1-K3) for its exact [EPL|SIE, Shear]
+        # + Sersic pattern, and the composable builder (K5-K7) for every
+        # other composition it covers
         self._fused_niter = self._detect_fused_pattern(phys_model)
+        self._fused_spec = None
+        if self._fused_niter is None:
+            self._fused_spec = fused_builder.build_spec(phys_model)
+        fusable = self._fused_niter is not None or self._fused_spec is not None
         use_fused = sim_config.use_fused_render
         if use_fused is None:
             use_fused = self.device.type == "cuda"
-        self._use_fused = bool(use_fused) and self._fused_niter is not None
+        self._use_fused = bool(use_fused) and fusable
 
     @staticmethod
     def _detect_fused_pattern(phys_model):
-        """The EPL niter if the model is [EPL, Shear] + [SersicEllipse]? +
-        [SersicEllipse] with no fixed constants, else None. A source-only
-        model (no lens light) feeds the kernel a zero-amplitude dummy lens
-        light. (SIE-as-EPL(gamma=2) waits for the SIE port.)"""
+        """The EPL niter if the model is [EPL|SIE, Shear] + [SersicEllipse]?
+        + [SersicEllipse] with sampled amplitudes and no fixed constants,
+        else None. Two degenerate patterns ride the same kernel:
+
+        * a source-only model (no lens light) feeds the kernel a
+          zero-amplitude dummy lens light;
+        * an SIE deflector is evaluated as EPL at gamma = 2 (an exact special
+          case) with ``EPL.recommended_niter(0.43, 1e-8)`` series terms.
+        """
         pm = phys_model
         ll_ok = len(pm.lens_light) == 0 or (
-            len(pm.lens_light) == 1 and type(pm.lens_light[0]) is SersicEllipse
+            len(pm.lens_light) == 1
+            and type(pm.lens_light[0]) is SersicEllipse
+            and not pm.lens_light[0].use_lstsq
         )
         ok = (
             len(pm.lenses) == 2
-            and type(pm.lenses[0]) is EPL
+            and type(pm.lenses[0]) in (EPL, SIE)
             and type(pm.lenses[1]) is Shear
             and ll_ok
             and len(pm.source_light) == 1
             and type(pm.source_light[0]) is SersicEllipse
+            and not pm.source_light[0].use_lstsq
             and all(not c for c in pm.lenses_constants)
             and all(not c for c in pm.lens_light_constants)
             and all(not c for c in pm.source_light_constants)
         )
-        return pm.lenses[0].niter if ok else None
+        if not ok:
+            return None
+        if type(pm.lenses[0]) is SIE:
+            return EPL.recommended_niter(q_min=0.43, tol=1e-8)
+        return pm.lenses[0].niter
 
     def beta(self, x, y, lens_params: List[Dict]):
         """Ray-shoots image-plane coords to the source plane (single plane)."""
@@ -164,24 +185,57 @@ class LensSimulator(gmodel.VersionedAttrs):
     def _get(params, key, profiles):
         return params.get(key, [{} for _ in profiles])
 
-    def _flat_light(self, params, no_deflection=False):
-        """Total surface brightness on the live supersampled pixels: (bs, npix)."""
+    def _flat_light(self, params, no_deflection=False, stack_components=False):
+        """Total surface brightness on the live supersampled pixels.
+
+        Returns (bs, npix), or (depth, bs, npix) when ``stack_components``.
+        """
         npix = self.img_x.shape[0]
+        pm = self.phys_model
+        spec = self._fused_spec
         if (
             self._use_fused
+            and spec is not None
+            and not no_deflection
+            and all(k in params for k, profs in (("lens_mass", pm.lenses),
+                                                 ("lens_light", pm.lens_light),
+                                                 ("source_light", pm.source_light)) if profs)
+            and ((stack_components and spec.all_lstsq)
+                 or (not stack_components and not spec.any_lstsq))
+        ):
+            extras = spec.gather_extras(self.img_x, self.img_y)
+            if extras is not None:  # None: a stage's grids aren't ready yet
+                packed = spec.pack(params)
+                if stack_components:
+                    out = fused_builder.fused_render_components(
+                        packed, self.img_x, self.img_y, extras, spec)
+                    return torch.broadcast_to(out, (spec.depth, self.bs, npix))
+                out = fused_builder.fused_render_sum(packed, self.img_x, self.img_y, extras, spec)
+                return torch.broadcast_to(out, (self.bs, npix))
+
+        if (
+            self._use_fused
+            and self._fused_niter is not None
+            and not stack_components
             and not no_deflection
             and all(k in params for k in ("lens_mass", "source_light"))
-            and (not self.phys_model.lens_light or "lens_light" in params)
+            and (not pm.lens_light or "lens_light" in params)
         ):
             fp = params
-            if not self.phys_model.lens_light:
+            if "gamma" not in params["lens_mass"][0]:
+                # SIE deflector: EPL at the constant gamma = 2 (an exact
+                # special case; the constant column carries no gradient)
+                lm0 = dict(params["lens_mass"][0])
+                lm0["gamma"] = torch.full_like(lm0["theta_E"].reshape(-1), 2.0)
+                fp = {**params, "lens_mass": [lm0, params["lens_mass"][1]]}
+            if not pm.lens_light:
                 # zero-amplitude lens light: Ie = 0 kills the component
                 # exactly; the other dummies sit at benign values so the
                 # kernel's intermediate math stays finite (R=1, n=4, e=0)
-                z = torch.zeros_like(params["lens_mass"][0]["theta_E"].reshape(-1))
+                z = torch.zeros_like(fp["lens_mass"][0]["theta_E"].reshape(-1))
                 ll = dict(R_sersic=z + 1.0, n_sersic=z + 4.0, e1=z, e2=z,
                           center_x=z, center_y=z, Ie=z)
-                fp = {**params, "lens_light": [ll]}
+                fp = {**fp, "lens_light": [ll]}
             out = fused_render(pack_params(fp), self.img_x, self.img_y, self._fused_niter)
             return torch.broadcast_to(out, (self.bs, npix))
 
@@ -201,6 +255,10 @@ class LensSimulator(gmodel.VersionedAttrs):
             self._source_light_constants,
         ):
             values.append(prof.light(beta_x, beta_y, **_batched(p), **c))
+        if stack_components:
+            # lstsq mode: each profile contributes (depth_i, bs, npix)
+            return torch.cat(
+                [torch.broadcast_to(v, (v.shape[0], self.bs, npix)) for v in values])
         if not values:
             return torch.zeros((self.bs, npix), dtype=x.dtype, device=self.device)
         return torch.broadcast_to(sum(values), (self.bs, npix))
@@ -230,4 +288,36 @@ class LensSimulator(gmodel.VersionedAttrs):
         """Renders observed-frame images; returns (bs, H, W) squeezed."""
         flat = self._flat_light(params, no_deflection=no_deflection)
         return torch.squeeze(self._postprocess(self._place(flat)))
+
+    def lstsq_simulate(self, params, observed_image, err_map, return_stacked=False,
+                       return_coeffs=False, no_deflection=False):
+        """Renders with linear amplitudes solved by weighted least squares.
+
+        Solves, per sample, ``argmin_a || (sum_k a_k X_k - Y) / err ||^2``
+        through the normal equations with a pseudo-inverse (relative cutoff
+        1e-6, as the JAX package's ``pinv(rcond=1e-6)``). ``observed_image``
+        and ``err_map`` are (H, W); scene-batched (S, H, W) data (survey
+        mode) is not ported yet.
+        """
+        observed_image = torch.as_tensor(observed_image, dtype=torch.float32,
+                                         device=self.device)
+        err_map = torch.as_tensor(err_map, dtype=torch.float32, device=self.device)
+        if observed_image.ndim == 3:
+            raise NotImplementedError(
+                "scene-batched (survey) lstsq data is not ported yet (ROADMAP M17)")
+        stacked = self._flat_light(params, no_deflection=no_deflection,
+                                   stack_components=True)  # (depth, bs, npix)
+        imgs = self._postprocess(self._place(stacked))  # (depth, bs, H, W)
+        ret = imgs.permute(1, 2, 3, 0)  # (bs, H, W, depth)
+        if return_stacked:
+            return ret
+        W = (1.0 / err_map)[..., None]  # (H, W, 1)
+        Y = (observed_image * W[..., 0]).reshape(1, -1, 1)
+        X = (ret * W).reshape(self.bs, -1, self.depth)
+        Xt = X.transpose(-1, -2)
+        coeffs = (torch.linalg.pinv(Xt @ X, rtol=1e-6) @ (Xt @ Y))[..., 0]
+        if return_coeffs:
+            return coeffs
+        out = torch.sum(ret * coeffs[:, None, None, :], dim=-1)
+        return torch.squeeze(out)
 

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Where the time of a MAP step goes on the card (PyTorch/CUDA port).
 
-    python3 scripts/torch_map_profile.py [--trace out.json]
+    python3 scripts/torch_map_profile.py [--family bench|S|L] [--trace out.json]
 
-Builds chip_smoke.py's bench scene (bs=500, 80x80 px, supersample 2),
-warms up, times 10 MAP steps, then runs 10 more under ``torch.profiler``
+Builds one of chip_smoke.py's MAP problems at bs=500 (80x80 px,
+supersample 2): the bench scene (K1-K4), the shapelet-source family S
+(K5/K7) or the lstsq family L (K6/K7), warms up, times 10 MAP steps, then
+runs 10 more under ``torch.profiler``
 and prints: the wall time per step, the device-busy share (the profiled
 window's device kernel and copy time over the unprofiled wall time; the
 port runs on one stream, so kernels do not overlap), and the device time
@@ -25,6 +27,7 @@ sys.path.insert(0, str(ROOT))
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--family", choices=("bench", "S", "L"), default="bench")
     ap.add_argument("--trace", type=Path, default=None, help="chrome trace output")
     args = ap.parse_args()
 
@@ -34,19 +37,12 @@ def main():
 
     import chip_smoke as cs
     from gigalens_tpu_torch.inference import ModellingSequence, optim
-    from gigalens_tpu_torch.model import ForwardProbModel
-    from gigalens_tpu_torch.simulator import LensSimulator
 
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
     print(f"card: {cs.card_line()}", flush=True)
     dev = torch.device("cuda")
-    phys, cfg, _ = cs.bench_scene()
-    prior = cs.bench_prior()
-    truth = prior.sample(torch.Generator(device=dev).manual_seed(42), 1)
-    img = LensSimulator(phys, cfg, bs=1, device=dev).simulate(truth)
-    prob = ForwardProbModel(prior, img.cpu().numpy(), background_rms=0.2, exp_time=100.0,
-                            device=dev)
+    phys, prob, prior, cfg = cs.problem(args.family)
     seq = ModellingSequence(phys, prob, cfg, device=dev)
     start = prior.unconstrain(prior.sample(torch.Generator(device=dev).manual_seed(0), cs.BS))
 
@@ -77,7 +73,7 @@ def main():
             if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
-    print(f"{STEPS} MAP steps at bs={cs.BS}: wall {1e3 * plain_wall / STEPS:.3f} "
+    print(f"{args.family}: {STEPS} MAP steps at bs={cs.BS}: wall {1e3 * plain_wall / STEPS:.3f} "
           f"ms/step unprofiled, {1e3 * wall / STEPS:.3f} ms/step profiled; device busy "
           f"{1e3 * busy / STEPS:.3f} ms/step = {100 * busy / plain_wall:.1f}% of the "
           f"unprofiled wall (idle {100 * (1 - busy / plain_wall):.1f}%)")

@@ -204,8 +204,9 @@ def test_port_never_imports_jax():
 def test_unported_inputs_raise(scene):
     """Inputs this slice does not port are refused, not silently mis-handled."""
     lstsq = PhysicalModel([EPL(18), Shear()], [], [SersicEllipse(use_lstsq=True)])
-    with pytest.raises(NotImplementedError, match="M13"):
-        LensSimulator(lstsq, scene["tcfg"], bs=1)
+    sim = LensSimulator(lstsq, scene["tcfg"], bs=1)  # single-scene lstsq is ported
+    with pytest.raises(NotImplementedError, match="M17"):
+        sim.lstsq_simulate({}, np.zeros((2, 20, 20)), np.ones((2, 20, 20)))
     with pytest.raises(NotImplementedError, match="M14"):
         PhysicalModel([EPL(18)], [], [SersicEllipse()], lens_redshifts=[0.5])
     with pytest.raises(NotImplementedError, match="M14"):
