@@ -28,7 +28,15 @@
    (BackwardProbModel with lstsq_simulate, K6/K7 + K4 over 16 x 500
    images). Each phase zeroes the launch counters just before it and reads
    them just after.
-6. Ends with the card line, a JSON line of per-kernel results and the ok
+6. Runs the bench pipeline (gigalens_tpu_torch.bench.run_pipeline, the
+   full configuration with HMC seed 2): MAP 500 x 350, FD Laplace, SVI
+   1000 x 300, HMC 50 chains x (250 + 750) ChEES, under the bench gates
+   (best-MAP and posterior red-chi2 <= 1.1, max split-R-hat <= 1.02),
+   with K2/K3/K4 required in MAP and SVI and K2/K3 without K4 in HMC;
+   then checks K2/K3 at the SVI (1000 surrogate draws) and HMC (the 50
+   chains' last states) shapes, and K4 at the SVI shape, against their
+   float64 twins.
+7. Ends with the card line, a JSON line of per-kernel results and the ok
    line.
 
 Every phase raises on failure (nothing is caught), so any failure exits
@@ -81,48 +89,16 @@ FAMILY_NITER, SHAPELET_NMAX, LSTSQ_NMAX = 23, 6, 4
 
 
 def bench_prior():
-    from gigalens_tpu_torch.prob import Prior
-    from gigalens_tpu_torch.prob import distributions as d
+    from gigalens_tpu_torch import bench
 
-    return Prior(dict(
-        lens_mass=[
-            dict(theta_E=d.LogNormal(math.log(1.25), 0.25),
-                 gamma=d.TruncatedNormal(2, 0.25, 1, 3),
-                 e1=d.Normal(0, 0.1), e2=d.Normal(0, 0.1),
-                 center_x=d.Normal(0, 0.05), center_y=d.Normal(0, 0.05)),
-            dict(gamma1=d.Normal(0, 0.05), gamma2=d.Normal(0, 0.05)),
-        ],
-        lens_light=[
-            dict(R_sersic=d.LogNormal(math.log(1.0), 0.15), n_sersic=d.Uniform(2, 6),
-                 e1=d.TruncatedNormal(0, 0.1, -0.3, 0.3),
-                 e2=d.TruncatedNormal(0, 0.1, -0.3, 0.3),
-                 center_x=d.Normal(0, 0.05), center_y=d.Normal(0, 0.05),
-                 Ie=d.LogNormal(math.log(500.0), 0.3)),
-        ],
-        source_light=[
-            dict(R_sersic=d.LogNormal(math.log(0.25), 0.15), n_sersic=d.Uniform(0.5, 4),
-                 e1=d.TruncatedNormal(0, 0.15, -0.5, 0.5),
-                 e2=d.TruncatedNormal(0, 0.15, -0.5, 0.5),
-                 center_x=d.Normal(0, 0.25), center_y=d.Normal(0, 0.25),
-                 Ie=d.LogNormal(math.log(150.0), 0.5)),
-        ],
-    ))
+    return bench.bench_prior()
 
 
 def bench_scene():
-    import numpy as np
+    """(phys, cfg, niter) of the bench scene (gigalens_tpu_torch/bench.py)."""
+    from gigalens_tpu_torch import bench
 
-    from gigalens_tpu_torch import PhysicalModel, SimulatorConfig
-    from gigalens_tpu_torch.profiles.light import SersicEllipse
-    from gigalens_tpu_torch.profiles.mass import EPL, Shear
-
-    g = np.exp(-((np.arange(25) - 12) ** 2 + (np.arange(25)[:, None] - 12) ** 2) / 8.0)
-    psf = (g / g.sum()).astype(np.float32)
-    niter = EPL.recommended_niter(q_min=0.43, tol=1e-8)
-    phys = PhysicalModel([EPL(niter), Shear()], [SersicEllipse()], [SersicEllipse()])
-    cfg = SimulatorConfig(delta_pix=DELTA_PIX, num_pix=NUM_PIX,
-                          supersample=SUPERSAMPLE, kernel=psf)
-    return phys, cfg, niter
+    return bench.bench_scene(NUM_PIX)
 
 
 def family_prior(kind):
@@ -592,13 +568,13 @@ def map_phase(label, phys, prob, prior, cfg, steps, check_sim, need):
     and every kernel in ``need`` launched."""
     import torch
 
-    from gigalens_tpu_torch.inference import ModellingSequence, optim
+    from gigalens_tpu_torch.inference import ModellingSequence
+    from gigalens_tpu_torch.inference.sequence import map_optimizer
     from gigalens_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 
     dev = torch.device("cuda")
     seq = ModellingSequence(phys, prob, cfg, device=dev)
-    opt = optim.chain(optim.scale_by_adam(), optim.scale_by_schedule(
-        optim.polynomial_schedule(-1e-2, -1e-2 / 3, 0.5, steps)))
+    opt = map_optimizer(steps)
     start = prior.unconstrain(prior.sample(torch.Generator(device=dev).manual_seed(0), BS))
     sim = seq._sim(BS)
     check_sim(sim)
@@ -642,8 +618,9 @@ def observe(img, gen, bkg=0.2, exp_time=100.0):
     """Gaussian + Poisson noise at bkg 0.2 / exp_time 100, as bench.py."""
     import torch
 
-    obs = img + torch.randn(img.shape, generator=gen, device=img.device) * torch.sqrt(
-        bkg**2 + torch.clamp(img, min=0.0) / exp_time)
+    from gigalens_tpu_torch import bench
+
+    obs = bench.observe(img, gen, bkg, exp_time)
     if obs.shape != (NUM_PIX, NUM_PIX) or not torch.isfinite(obs).all():
         raise AssertionError(f"bad observation: shape {tuple(obs.shape)}")
     return obs
@@ -708,6 +685,181 @@ def family_path(kind, steps):
     return map_phase(f"family {kind}", *problem(kind), steps, builder_check, need)
 
 
+MAP_SVI_NEED = ("fused_render_fwd_omega", "fused_render_bwd", "dft_conv_fwd",
+                "dft_conv_transpose")
+HMC_NEED = ("fused_render_fwd_omega", "fused_render_bwd")
+HMC_BANNED = ("dft_conv_fwd", "dft_conv_transpose")
+# the bench gates: best-MAP and posterior red-chi2 ~ 1, split-R-hat <= 1.02
+CHI2_GATE, RHAT_GATE = 1.1, 1.02
+
+
+def pipeline_phase():
+    """gigalens_tpu_torch.bench.run_pipeline at the full configuration with
+    one HMC seed (2): MAP 500 x 350, FD Laplace (bs 44), SVI 1000 x 300,
+    HMC 50 chains x (250 + 750) ChEES, posterior red-chi2 of the last draw.
+    Launch counters and peak memory are zeroed at each phase boundary.
+    Raises unless the bench gates hold and each phase ran its kernels: MAP
+    and SVI K2/K3 and the dft conv both ways, HMC K2/K3 and no dft conv
+    (its exact path convolves with torch.fft). Returns the pipeline and
+    each phase's record (wall, launch counts, peak memory)."""
+    import contextlib
+
+    import torch
+
+    from gigalens_tpu_torch import bench
+    from gigalens_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    rec = {}
+
+    @contextlib.contextmanager
+    def hook(name):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        rec[name] = dict(wall=time.perf_counter() - t0, counts=launch_counts(),
+                         peak=torch.cuda.max_memory_allocated() / 2**30)
+
+    cfg = dict(bench.CONFIGS["full"], scale="full")
+    t0 = time.perf_counter()
+    pipe = bench.run_pipeline(cfg, hmc_seeds=[2], device="cuda", phase_hook=hook)
+    total = time.perf_counter() - t0
+    r, res = pipe.result, pipe.hmc_res
+    row = r["seeds"][0]
+    for name in ("map", "laplace", "svi", "hmc", "posterior_chi2"):
+        print(f"pipeline {name}: {rec[name]['wall']:.3f} s, peak device memory "
+              f"{rec[name]['peak']:.3f} GiB, launches {json.dumps(rec[name]['counts'])}",
+              flush=True)
+    print(f"pipeline: MAP {r['phase_s']['map']} s, Laplace {r['laplace_s']} s, SVI (with "
+          f"Laplace) {r['phase_s']['svi']} s, HMC {r['phase_s']['hmc']} s; total "
+          f"{r['value']} s ({total:.1f} s with set-up and scoring)", flush=True)
+    print(f"pipeline: best-MAP red-chi2 {r['best_map_red_chi2']}, SVI ELBO loss "
+          f"{pipe.elbo[0]:.2f} -> {pipe.elbo[1]:.2f}", flush=True)
+    print(f"pipeline: HMC accept {row['accept']}, eps {row['eps']}, total leapfrogs "
+          f"{row['leapfrogs']}, {1e3 * row['t'] / max(row['leapfrogs'], 1):.3f} ms/leapfrog "
+          f"at {cfg['hmc_n']} chains, divergences {int(res.divergences.sum())}", flush=True)
+    print(f"pipeline: min ESS {r['min_ess']}, max split-R-hat {r['max_rhat']}, posterior "
+          f"mean red-chi2 {r['posterior_red_chi2']}", flush=True)
+    print(f"pipeline JSON: {json.dumps(r)}", flush=True)
+
+    want = (cfg["results"], cfg["hmc_n"], pipe.prior.d)
+    if tuple(res.samples.shape) != want or not torch.isfinite(res.samples).all():
+        raise AssertionError(f"HMC samples not finite / wrong shape {tuple(res.samples.shape)}")
+    if not r["complete"]:
+        raise AssertionError(f"pipeline incomplete: {r.get('failed_phases')}")
+    if not r["best_map_red_chi2"] <= CHI2_GATE:
+        raise AssertionError(f"best-MAP red-chi2 {r['best_map_red_chi2']} > {CHI2_GATE}")
+    if not r["posterior_red_chi2"] <= CHI2_GATE:
+        raise AssertionError(f"posterior red-chi2 {r['posterior_red_chi2']} > {CHI2_GATE}")
+    if not (r["max_rhat"] <= RHAT_GATE and math.isfinite(r["min_ess"])):
+        raise AssertionError(f"max split-R-hat {r['max_rhat']} > {RHAT_GATE} "
+                             f"or min ESS {r['min_ess']} not finite")
+    for phase, need, banned in (("map", MAP_SVI_NEED, ()), ("svi", MAP_SVI_NEED, ()),
+                                ("hmc", HMC_NEED, HMC_BANNED)):
+        counts = rec[phase]["counts"]
+        missing = [k for k in need if counts[k] <= 0]
+        extra = [k for k in banned if counts[k] != 0]
+        if missing or extra:
+            raise AssertionError(f"pipeline {phase}: kernels never launched {missing}, "
+                                 f"launched but off this path {extra}")
+    return pipe, rec
+
+
+def pipeline_kernel_checks(pipe):
+    """K2/K3 at the pipeline's SVI shape (n_vi = 1000 draws from the fitted
+    surrogate, as the SVI phase draws them) and HMC shape (the 50 chains'
+    last states), and K4 both ways at the SVI shape (the K2 images and a
+    random cotangent), each against its float64 twin with kernel_checks'
+    tolerances, and timed against its float32 twin with CUDA events."""
+    import torch
+
+    from gigalens_tpu_torch.ops.cuda import dft_conv as dc
+    from gigalens_tpu_torch.ops.cuda import fused_render as fr
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    kernels = []
+    for phase, z in (("svi", pipe.q_z.sample(gen, pipe.cfg["vi_n"])),
+                     ("hmc", pipe.hmc_res.samples[-1])):
+        sim = pipe.seq._sim(z.shape[0], exact=phase == "hmc")
+        params = fr.pack_params(pipe.prior.constrain(z)).contiguous()
+        bs, x, y, niter = params.shape[0], sim.img_x, sim.img_y, sim._fused_niter
+        where = f"{phase.upper()} bs={bs}"
+        out, ox, oy = fr.fused_render_fwd(params, x, y, niter, save_omega=True)
+        torch.cuda.synchronize()
+        ref = [fr.fused_render_fwd_reference(params[i:i + 50].double(), x.double(),
+                                             y.double(), niter) for i in range(0, bs, 50)]
+        out64, ox64, oy64 = (torch.cat(t) for t in zip(*ref))
+        del ref
+        e2 = check_close(f"K2 out vs f64 twin ({where})", out, out64, FWD_RTOL, FWD_ATOL)
+        e_om = max(check_close(f"K2 ox vs f64 twin ({where})", ox, ox64, 0.0, OMEGA_ATOL),
+                   check_close(f"K2 oy vs f64 twin ({where})", oy, oy64, 0.0, OMEGA_ATOL))
+        del out64, ox64, oy64
+        ms = cuda_ms(lambda: fr.fused_render_fwd(params, x, y, niter, save_omega=True))
+        pms = cuda_ms(lambda: fr.fused_render_fwd_reference(params, x, y, niter), reps=3,
+                      warmup=1)
+        kernels.append(dict(name=f"fused_render_fwd<true> (K2) at {where}",
+                            key="fused_render_fwd_omega", phase=phase, route="cuda",
+                            source="gigalens_tpu_torch/csrc/fused_render.cu",
+                            replaces="gigalens_tpu/ops/pallas/fused_render.py:246",
+                            max_abs_err=max(e2, e_om), ms=ms, plain_ms=pms))
+        print(f"K2 at {where}: max|err| out {e2:.3e} omega {e_om:.3e}  kernel {ms:.3f} ms  "
+              f"twin {pms:.3f} ms", flush=True)
+
+        ct = torch.randn(out.shape, generator=gen, device=dev)
+        g_k = fr.fused_render_bwd(params, x, y, ox, oy, ct, niter)
+        torch.cuda.synchronize()
+
+        def grad64(p, c):
+            p = p.double().requires_grad_(True)
+            o = fr.fused_render_reference(p, x.double(), y.double(), niter)
+            return torch.autograd.grad((o * c.double()).sum(), p)[0]
+
+        rel3, e3 = check_rel(f"K3 vs f64 autograd of the twin ({where})", g_k,
+                             chunked(grad64, bs, 25, params, ct), GRAD_REL, dim=0)
+        ms = cuda_ms(lambda: fr.fused_render_bwd(params, x, y, ox, oy, ct, niter))
+        pms = cuda_ms(lambda: fr.fused_render_bwd_reference(params, x, y, ox, oy, ct, niter),
+                      reps=3, warmup=1)
+        kernels.append(dict(name=f"fused_render_bwd (K3) at {where}", key="fused_render_bwd",
+                            phase=phase, route="cuda",
+                            source="gigalens_tpu_torch/csrc/fused_render.cu",
+                            replaces="gigalens_tpu/ops/pallas/fused_render.py:299",
+                            max_abs_err=e3, ms=ms, plain_ms=pms))
+        print(f"K3 at {where}: col-rel err vs f64 autograd {rel3:.3e}  kernel {ms:.3f} ms  "
+              f"twin {pms:.3f} ms", flush=True)
+        if phase == "hmc":
+            continue
+
+        conv = sim._conv
+        if conv is None or conv.mode != "dft":
+            raise AssertionError(f"the SVI simulator should take the dft conv, got {conv}")
+        h, w = conv.h, conv.w
+        for direction, mats, arg, key in (
+            ("fwd", conv._dft.fwd_mats, out.reshape(bs, h, w).contiguous(), "dft_conv_fwd"),
+            ("transpose", conv._dft.bwd_mats,
+             torch.randn((bs, h // conv.pool, w // conv.pool), generator=gen, device=dev),
+             "dft_conv_transpose"),
+        ):
+            got = dc.dft_conv_cuda(arg, mats, direction)
+            torch.cuda.synchronize()
+            m64 = [m.double() for m in mats]
+            r4, e4 = check_rel(f"K4 {direction} vs f64 einsum twin ({where})", got,
+                               chunked(lambda a: dc.dft_conv_reference(a.double(), m64), bs,
+                                       100, arg), CONV_REL)
+            ms = cuda_ms(lambda: dc.dft_conv_cuda(arg, mats, direction))
+            pms = cuda_ms(lambda: dc.dft_conv_reference(arg, mats))
+            kernels.append(dict(name=f"dft_conv {direction} (K4) at {where}", key=key,
+                                phase=phase, route="cuda",
+                                source="gigalens_tpu_torch/csrc/dft_conv.cu",
+                                replaces="gigalens_tpu/ops/pallas/dft_conv.py:95",
+                                max_abs_err=e4, ms=ms, plain_ms=pms))
+            print(f"K4 {direction} at {where}: rel err vs f64 twin {r4:.3e}  kernel {ms:.3f} ms"
+                  f"  twin {pms:.3f} ms", flush=True)
+    return kernels
+
+
 def main():
     import torch
 
@@ -733,8 +885,12 @@ def main():
     kernels = [dict(k, phase="bench") for k in kernel_checks()] + builder_checks()
     counts = {"bench": main_path(MAP_STEPS), "S": family_path("S", MAP_STEPS),
               "L": family_path("L", MAP_STEPS)}
-    # launches: each kernel's count in the MAP phase of its row (K1-K4 the
-    # bench scene, K5 and K7 family S, K6 and K7-components family L)
+    pipe, rec = pipeline_phase()
+    kernels += pipeline_kernel_checks(pipe)
+    counts.update(svi=rec["svi"]["counts"], hmc=rec["hmc"]["counts"])
+    # launches: each kernel's count in the phase of its row (K1-K4 the bench
+    # scene's MAP, K5 and K7 family S's, K6 and K7-components family L's;
+    # the rows at the SVI and HMC shapes the pipeline's SVI and HMC phases)
     out = [
         {k: v for k, v in dict(kern, launches=counts[kern["phase"]][kern["key"]]).items()
          if k not in ("key", "phase")}

@@ -1,0 +1,348 @@
+"""End-to-end pipeline benchmark of the port: MAP -> Laplace -> SVI -> HMC wall.
+
+    python3 -m gigalens_tpu_torch.bench
+
+The scene, prior and phase configurations of the JAX package's ``bench.py``:
+EPL+Shear lens, SersicEllipse lens light and source, 80x80 px at 0.065"/px,
+supersample 2, the 25x25 Gaussian PSF, background_rms 0.2, exp_time 100.
+The truth is a prior draw from a ``torch.Generator`` seeded 42 and the
+noise is drawn from one seeded 1, both on the device. Phases: multi-start
+MAP (500 x 350 steps), FD Laplace + full-rank SVI (n_vi 1000 x 300 steps),
+then serial HMC seeds 2, 3, 4 (50 chains, 250 burn-in + 750 results,
+ChEES), then the posterior red-chi2 of the last draw.
+
+Knobs: ``GIGALENS_BENCH_SCALE`` (tiny | small | full), ``GIGALENS_BENCH_SVI_STEPS``,
+``GIGALENS_BENCH_HMC_SEEDS`` (comma-separated), ``GIGALENS_EPL_NITER``,
+``GIGALENS_LAPLACE_METHOD`` (fd | exact), ``GIGALENS_BASELINE_S``.
+
+It runs on the CUDA device and fails when there is none; ``--device cpu``
+runs it on the CPU instead.
+
+Prints ONE JSON line with the keys of the JAX bench (``metric``, ``value``,
+``phase_s``, ``seeds``, ``min_ess``, ``max_rhat``, ...), without its
+``aot``, ``mfu`` and ``peak_*`` blocks. Each phase runs isolated: a failure
+is recorded in ``failed_phases`` with ``complete: false`` and the process
+exits nonzero. :func:`run_pipeline` is the same pipeline with no isolation.
+"""
+from __future__ import annotations
+
+import contextlib
+import json
+import math
+import os
+import sys
+import time
+import traceback
+
+import numpy as np
+import torch
+
+CONFIGS = {
+    "tiny": dict(num_pix=40, map_n=32, map_steps=30, vi_n=32, vi_steps=30,
+                 hmc_n=8, burnin=20, results=30, hmc_seeds=[2]),
+    "small": dict(num_pix=80, map_n=100, map_steps=100, vi_n=100, vi_steps=150,
+                  hmc_n=16, burnin=50, results=100, hmc_seeds=[2]),
+    "full": dict(num_pix=80, map_n=500, map_steps=350, vi_n=1000, vi_steps=300,
+                 hmc_n=50, burnin=250, results=750, hmc_seeds=[2, 3, 4]),
+}
+DELTA_PIX, SUPERSAMPLE, BKG, EXP_TIME = 0.065, 2, 0.2, 100.0
+
+
+def log(msg):
+    print(msg, file=sys.stderr, flush=True)
+
+
+def config_from_env():
+    """The configuration ``GIGALENS_BENCH_SCALE`` names, with the step and
+    seed overrides applied."""
+    scale = os.environ.get("GIGALENS_BENCH_SCALE", "full")
+    cfg = dict(CONFIGS[scale], scale=scale)
+    if os.environ.get("GIGALENS_BENCH_SVI_STEPS"):
+        cfg["vi_steps"] = int(os.environ["GIGALENS_BENCH_SVI_STEPS"])
+    if os.environ.get("GIGALENS_BENCH_HMC_SEEDS"):
+        cfg["hmc_seeds"] = [int(s) for s in os.environ["GIGALENS_BENCH_HMC_SEEDS"].split(",")]
+    return cfg
+
+
+def bench_prior():
+    from gigalens_tpu_torch.prob import Prior
+    from gigalens_tpu_torch.prob import distributions as d
+
+    return Prior(dict(
+        lens_mass=[
+            dict(theta_E=d.LogNormal(math.log(1.25), 0.25),
+                 gamma=d.TruncatedNormal(2, 0.25, 1, 3),
+                 e1=d.Normal(0, 0.1), e2=d.Normal(0, 0.1),
+                 center_x=d.Normal(0, 0.05), center_y=d.Normal(0, 0.05)),
+            dict(gamma1=d.Normal(0, 0.05), gamma2=d.Normal(0, 0.05)),
+        ],
+        lens_light=[
+            dict(R_sersic=d.LogNormal(math.log(1.0), 0.15), n_sersic=d.Uniform(2, 6),
+                 e1=d.TruncatedNormal(0, 0.1, -0.3, 0.3),
+                 e2=d.TruncatedNormal(0, 0.1, -0.3, 0.3),
+                 center_x=d.Normal(0, 0.05), center_y=d.Normal(0, 0.05),
+                 Ie=d.LogNormal(math.log(500.0), 0.3)),
+        ],
+        source_light=[
+            dict(R_sersic=d.LogNormal(math.log(0.25), 0.15), n_sersic=d.Uniform(0.5, 4),
+                 e1=d.TruncatedNormal(0, 0.15, -0.5, 0.5),
+                 e2=d.TruncatedNormal(0, 0.15, -0.5, 0.5),
+                 center_x=d.Normal(0, 0.25), center_y=d.Normal(0, 0.25),
+                 Ie=d.LogNormal(math.log(150.0), 0.5)),
+        ],
+    ))
+
+
+def gaussian_psf():
+    """The JAX bench's 25x25 Gaussian fallback PSF."""
+    g = np.exp(-((np.arange(25) - 12) ** 2 + (np.arange(25)[:, None] - 12) ** 2) / 8.0)
+    return (g / g.sum()).astype(np.float32)
+
+
+def epl_niter():
+    """Series depth: ``GIGALENS_EPL_NITER``, else the convergence bound for
+    the prior's axis ratios (q >= 0.43 at 4 sigma, tol 1e-8)."""
+    from gigalens_tpu_torch.profiles.mass import EPL
+
+    return int(os.environ.get("GIGALENS_EPL_NITER", 0)) or EPL.recommended_niter(
+        q_min=0.43, tol=1e-8)
+
+
+def bench_scene(num_pix=80, niter=None):
+    """(phys, sim_config, niter) of the bench scene."""
+    from gigalens_tpu_torch import PhysicalModel, SimulatorConfig
+    from gigalens_tpu_torch.profiles.light import SersicEllipse
+    from gigalens_tpu_torch.profiles.mass import EPL, Shear
+
+    niter = niter or epl_niter()
+    phys = PhysicalModel([EPL(niter), Shear()], [SersicEllipse()], [SersicEllipse()])
+    cfg = SimulatorConfig(delta_pix=DELTA_PIX, num_pix=num_pix, supersample=SUPERSAMPLE,
+                          kernel=gaussian_psf())
+    return phys, cfg, niter
+
+
+def observe(img, gen, bkg=BKG, exp_time=EXP_TIME):
+    """Gaussian + Poisson noise at the bench's background and exposure."""
+    return img + torch.randn(img.shape, generator=gen, device=img.device) * torch.sqrt(
+        bkg**2 + torch.clamp(img, min=0.0) / exp_time)
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _nanmin(x):
+    return float(torch.where(torch.isnan(x), torch.inf, x).min())
+
+
+def new_result(cfg, device_name=None):
+    """The JSON line's dict before any phase has run."""
+    result = {"metric": "map_svi_hmc_wallclock", "value": None, "unit": "s",
+              "vs_baseline": None, "phase_s": {}, "seeds": [], "scale": cfg.get("scale")}
+    if device_name is not None:
+        result["device"] = device_name
+    return result
+
+
+class Pipeline:
+    """The bench pipeline's state and phases, in order: :meth:`phase_map`,
+    :meth:`phase_svi`, :meth:`phase_hmc`, :meth:`phase_posterior_chi2`.
+    Each fills ``self.result`` (the JSON line's dict) as it completes.
+
+    ``phase_hook(name)``, if given, returns a context manager entered around
+    each measured piece: ``map``, ``laplace``, ``svi``, ``hmc`` (once per
+    seed) and ``posterior_chi2``.
+    """
+
+    def __init__(self, cfg, hmc_seeds=None, device="cuda", phase_hook=None):
+        from gigalens_tpu_torch.inference import ModellingSequence
+        from gigalens_tpu_torch.model import ForwardProbModel
+        from gigalens_tpu_torch.simulator import LensSimulator
+
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device (pass device='cpu', or --device cpu, "
+                               "to run on the CPU)")
+        self.cfg = cfg
+        self.hmc_seeds = list(cfg["hmc_seeds"] if hmc_seeds is None else hmc_seeds)
+        self.hook = phase_hook or (lambda name: contextlib.nullcontext())
+        self.phys, self.sim_config, self.niter = bench_scene(cfg["num_pix"])
+        self.prior = bench_prior()
+        log(f"device: {self.device}  scale={cfg.get('scale')}  EPL niter={self.niter}")
+
+        truth = self.prior.sample(torch.Generator(device=self.device).manual_seed(42), 1)
+        sim1 = LensSimulator(self.phys, self.sim_config, bs=1, device=self.device)
+        with torch.no_grad():
+            img = sim1.simulate(truth)
+        obs = observe(img, torch.Generator(device=self.device).manual_seed(1))
+        self.prob_model = ForwardProbModel(self.prior, obs.cpu().numpy(), background_rms=BKG,
+                                           exp_time=EXP_TIME, device=self.device)
+        self.seq = ModellingSequence(self.phys, self.prob_model, self.sim_config,
+                                     device=self.device)
+        self.result = new_result(cfg, torch.cuda.get_device_name(self.device)
+                                 if self.device.type == "cuda" else "cpu")
+
+    def _score(self, z):
+        """(log_prob, reduced chi2) of ``z`` on the fast simulator."""
+        from gigalens_tpu_torch.simulator import LensSimulator
+
+        sim = LensSimulator(self.phys, self.sim_config, bs=z.shape[0], device=self.device)
+        with torch.no_grad():
+            return self.prob_model.log_prob(sim, z)
+
+    def phase_map(self):
+        from gigalens_tpu_torch.inference.sequence import map_optimizer
+
+        cfg = self.cfg
+        with self.hook("map"):
+            t0 = time.perf_counter()
+            z_map = self.seq.MAP(map_optimizer(cfg["map_steps"]), n_samples=cfg["map_n"],
+                                 num_steps=cfg["map_steps"], seed=0)
+            _sync(self.device)
+            self.t_map = time.perf_counter() - t0
+        lps, chi2 = self._score(z_map)
+        self.z_map, self.lps = z_map, lps
+        self.best_chi2 = _nanmin(chi2)
+        log(f"MAP: {self.t_map:.1f}s best red-chi2 {self.best_chi2:.3f}")
+        self.result["phase_s"]["map"] = round(self.t_map, 2)
+        self.result["best_map_red_chi2"] = round(self.best_chi2, 4)
+
+    def phase_svi(self):
+        """FD Laplace at the best MAP point, then SVI; the Laplace wall is
+        counted inside the SVI phase's, as in the JAX bench."""
+        from gigalens_tpu_torch.inference.sequence import svi_optimizer
+
+        cfg = self.cfg
+        t0 = time.perf_counter()
+        with self.hook("laplace"):
+            lps = torch.where(torch.isnan(self.lps), -torch.inf, self.lps)
+            best = self.z_map[torch.argmax(lps)][None, :]
+            method = os.environ.get("GIGALENS_LAPLACE_METHOD", "fd")
+            L0 = self.seq.laplace_scale_tril(best, method=method)
+            self.t_laplace = time.perf_counter() - t0
+        log(f"laplace init ({method}): {self.t_laplace:.1f}s")
+        with self.hook("svi"):
+            self.q_z, self.losses = self.seq.SVI(best, svi_optimizer(cfg["vi_steps"]),
+                                                 n_vi=cfg["vi_n"],
+                                                 num_steps=cfg["vi_steps"], init_scales=L0,
+                                                 seed=1)
+            _sync(self.device)
+            self.t_svi = time.perf_counter() - t0
+        self.elbo = (float(self.losses[0]), float(self.losses[-1]))
+        log(f"SVI: {self.t_svi:.1f}s elbo {self.elbo[0]:.1f} -> {self.elbo[1]:.1f}")
+        self.result["phase_s"]["svi"] = round(self.t_svi, 2)
+        self.result["laplace_s"] = round(self.t_laplace, 2)
+
+    def phase_hmc(self):
+        """Serial HMC seeds; the headline quality is the last seed's."""
+        from gigalens_tpu_torch.utils import effective_sample_size, potential_scale_reduction
+
+        cfg = self.cfg
+        rows = []
+        for seed in self.hmc_seeds:
+            with self.hook("hmc"):
+                t0 = time.perf_counter()
+                res = self.seq.HMC(self.q_z, n_hmc=cfg["hmc_n"], num_burnin_steps=cfg["burnin"],
+                                   num_results=cfg["results"], seed=seed)
+                _sync(self.device)
+                t_hmc = time.perf_counter() - t0
+            ess = effective_sample_size(res.samples)
+            rhat = potential_scale_reduction(res.samples)
+            accept = float(res.accept_rate[-100:].mean())
+            eps, nlf = float(res.step_size), int(res.total_leapfrogs)
+            rows.append(dict(seed=seed, t=t_hmc, min_ess=float(ess.min()),
+                             ess_per_sec=float(ess.min()) / t_hmc, max_rhat=float(rhat.max()),
+                             accept=accept, eps=eps, leapfrogs=nlf))
+            log(f"HMC seed {seed}: {t_hmc:.1f}s accept {accept:.2f} eps {eps:.4f} "
+                f"min ESS {ess.min():.0f} max rhat {rhat.max():.3f} leapfrogs {nlf} "
+                f"({t_hmc / max(nlf, 1) * 1e3:.2f} ms/lf)")
+        self.hmc_res, self.seed_rows = res, rows
+        self.ess, self.rhat = ess, rhat
+        t_med = float(np.median([r["t"] for r in rows]))
+        self.result.update({
+            "value": round(self.t_map + self.t_svi + t_med, 2),
+            "ess_per_sec": round(float(ess.min()) / rows[-1]["t"], 2),
+            "ess_per_sec_median": round(float(np.median([r["ess_per_sec"] for r in rows])), 2),
+            "seeds": [{k: (round(v, 4) if isinstance(v, float) else v) for k, v in r.items()}
+                      for r in rows],
+            "hmc_grouped": False,
+            "hmc_wall_all_seeds": round(float(np.sum([r["t"] for r in rows])), 2),
+            "min_ess": round(float(ess.min()), 1),
+            "max_rhat": round(float(rhat.max()), 4),
+            "accept_rate": round(rows[-1]["accept"], 3),
+        })
+        self.result["phase_s"]["hmc"] = round(t_med, 2)
+
+    def phase_posterior_chi2(self):
+        """Mean reduced chi2 over the chains' last draw (fast simulator)."""
+        with self.hook("posterior_chi2"):
+            _, chi2 = self._score(self.hmc_res.samples[-1])
+            self.post_chi2 = float(torch.mean(chi2))
+        log(f"posterior mean red-chi2 {self.post_chi2:.3f}")
+        self.result["posterior_red_chi2"] = round(self.post_chi2, 4)
+
+    def phases(self):
+        return [("map", self.phase_map), ("svi", self.phase_svi), ("hmc", self.phase_hmc),
+                ("posterior_chi2", self.phase_posterior_chi2)]
+
+
+def finish(result, failures=()):
+    """Marks completeness, fills a partial total and ``vs_baseline``."""
+    if failures:
+        result["failed_phases"] = list(failures)
+    result["complete"] = not failures
+    if result["value"] is None and result["phase_s"]:
+        # honest partial total: the completed phases' walls
+        result["value"] = round(sum(result["phase_s"].values()), 2)
+    baseline_s = os.environ.get("GIGALENS_BASELINE_S")
+    if baseline_s and result["value"]:
+        result["vs_baseline"] = float(baseline_s) / result["value"]
+    return result
+
+
+def run_pipeline(cfg, hmc_seeds=None, device="cuda", phase_hook=None) -> Pipeline:
+    """Runs every phase in order with no isolation (a failure raises) and
+    returns the :class:`Pipeline`; its ``result`` is the JSON line's dict."""
+    pipe = Pipeline(cfg, hmc_seeds, device=device, phase_hook=phase_hook)
+    for _, phase in pipe.phases():
+        phase()
+    finish(pipe.result)
+    return pipe
+
+
+def main(cfg=None, device="cuda") -> int:
+    """Runs the pipeline with each phase isolated, prints the JSON line, and
+    returns 0 only if every phase completed."""
+    cfg = cfg or config_from_env()
+    failures = []
+    result = new_result(cfg)
+    try:
+        pipe = Pipeline(cfg, device=device)
+        result = pipe.result
+        for name, phase in pipe.phases():
+            try:
+                phase()
+            except Exception as e:
+                log(f"PHASE {name} FAILED:\n{traceback.format_exc(limit=8)}")
+                failures.append(dict(phase=name, path="primary",
+                                     error=f"{type(e).__name__}: {str(e)[:500]}"))
+                break  # every later phase needs this one's output
+    except Exception as e:
+        log(traceback.format_exc())
+        failures.append(dict(phase="setup", path="primary",
+                             error=f"{type(e).__name__}: {str(e)[:500]}"))
+    print(json.dumps(finish(result, failures)), flush=True)
+    return 0 if result["complete"] else 1
+
+
+def _cli(argv):
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    return main(device=ap.parse_args(argv).device)
+
+
+if __name__ == "__main__":
+    sys.exit(_cli(sys.argv[1:]))

@@ -1,10 +1,14 @@
-"""Multi-start MAP optimization (port of :mod:`gigalens_tpu.inference.map`).
+"""Multi-start MAP and the Laplace initializer (port of
+:mod:`gigalens_tpu.inference.map`).
 
-The step is a plain Python loop on the device: loss = ``-mean(lp) /
+The MAP step is a plain Python loop on the device: loss = ``-mean(lp) /
 event_size`` (the reference's convention), autograd, then the optimizer
-update. The per-step minimum reduced chi2 stays on the device until the
-end, so the loop never waits for the card. ``laplace_scale_tril`` is not
-ported yet (ROADMAP M8).
+update. The per-step minimum reduced chi2 stays on the device; the loop
+waits for the card only where a ``progress`` callback asks for a value.
+
+``laplace_scale_tril`` takes the Hessian of the unconstrained log posterior
+at the MAP point, by central differences of one batched gradient
+(``method="fd"``) or by double backward (``method="exact"``).
 """
 from __future__ import annotations
 
@@ -25,6 +29,8 @@ def fit_map(
     n_samples: int = 500,
     num_steps: int = 350,
     seed: int = 0,
+    segment_steps: int = 0,
+    progress=None,
 ):
     """Runs multi-start Adam; returns (z, chi2_history).
 
@@ -33,6 +39,10 @@ def fit_map(
     chi2 across samples, each evaluated before that step's update. Without
     ``start`` the starts are prior draws from a ``torch.Generator`` seeded
     with ``seed`` on the simulator's device.
+
+    ``progress``, if given, is called after every segment of
+    ``segment_steps`` steps (all of them when 0) with ``(steps_done,
+    min_reduced_chi2_of_the_segment)``.
     """
     event_size = float(prob_model.event_size(simulator))
     if start is None:
@@ -42,10 +52,11 @@ def fit_map(
     else:
         z = torch.as_tensor(start, dtype=torch.float32, device=simulator.device)
     z = z.detach().clone()
+    n_seg = segment_steps if segment_steps > 0 else max(num_steps, 1)
 
     state = optimizer.init(z)
     hist = []
-    for _ in range(num_steps):
+    for step in range(num_steps):
         z.requires_grad_(True)
         lp, chisq = prob_model.log_prob(simulator, z)
         loss = -torch.mean(lp) / event_size
@@ -54,6 +65,10 @@ def fit_map(
             updates, state = optimizer.update(grad, state, z)
             z = z.detach() + updates
             hist.append(_nanmin(chisq.detach()))
+        done = step + 1
+        if progress is not None and (done % n_seg == 0 or done == num_steps):
+            seg = hist[(done - 1) // n_seg * n_seg:]
+            progress(done, float(_nanmin(torch.stack(seg))))
     return z, torch.stack(hist) if hist else torch.empty(0, device=z.device)
 
 
@@ -64,3 +79,53 @@ def best_start(prob_model, simulator, z):
     # diverged starts carry NaN log-posteriors; argmax would pick a NaN
     lp = torch.where(torch.isnan(lp), -torch.inf, lp)
     return z[torch.argmax(lp)][None, :]
+
+
+def _floored_inv_chol(h, d, floor_ratio):
+    """chol(H^{-1}) with the |eigenvalue| floor (shared by both methods)."""
+    h = 0.5 * (h + h.T)
+    lam, vec = torch.linalg.eigh(h)
+    # |lam|: at an approximate optimum the Hessian can be indefinite; the
+    # magnitude still measures curvature scale in that direction
+    lam = torch.maximum(torch.abs(lam), torch.max(torch.abs(lam)) * floor_ratio)
+    cov = (vec / lam) @ vec.T
+    cov = 0.5 * (cov + cov.T)
+    eye = torch.eye(d, dtype=cov.dtype, device=cov.device)
+    return torch.linalg.cholesky(cov + torch.trace(cov) / d * 1e-6 * eye)
+
+
+def laplace_scale_tril(prob_model, simulator, z_best, floor_ratio: float = 1e-6,
+                       method: str = "exact"):
+    """Cholesky factor of the Laplace covariance at the MAP point.
+
+    Computes the Hessian of the unconstrained log posterior at ``z_best``
+    (shape (1, d) or (d,)), eigen-floors it for positive-definiteness, and
+    returns ``chol(H^{-1})`` as a (d, d) tensor on the simulator's device.
+
+    ``method="fd"``: central differences of the gradient with the step
+    ``1e-3 * max(|z|, 1)`` per dimension, all 2d perturbed points in one
+    batched gradient (the simulator must be built with ``bs = 2 * d``).
+    ``method="exact"``: d rows of double backward through the log posterior
+    (``bs = 1``); every profile's custom backward is built from
+    differentiable torch ops, so the second derivative is exact.
+    """
+    z_best = torch.as_tensor(z_best, dtype=torch.float32, device=simulator.device)
+    z = z_best.detach().reshape(-1)
+    d = z.shape[0]
+
+    if method == "fd":
+        hstep = 1e-3 * torch.clamp(torch.abs(z), min=1.0)
+        pert = torch.diag(hstep)
+        batch = torch.cat([z[None, :] + pert, z[None, :] - pert], dim=0).requires_grad_(True)
+        lp = prob_model.log_prob(simulator, batch)[0]
+        (g,) = torch.autograd.grad(-torch.sum(lp), batch)
+        h = (g[:d] - g[d:]) / (2.0 * hstep[:, None])
+        return _floored_inv_chol(h, d, floor_ratio)
+    if method != "exact":
+        raise ValueError(f"unknown Laplace method {method!r}: use 'fd' or 'exact'")
+
+    def neg_lp(zrow):
+        return -prob_model.log_prob(simulator, zrow[None, :])[0][0]
+
+    h = torch.autograd.functional.hessian(neg_lp, z)
+    return _floored_inv_chol(h.detach(), d, floor_ratio)

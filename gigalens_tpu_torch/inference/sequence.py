@@ -1,19 +1,27 @@
-"""ModellingSequence: the MAP -> SVI -> HMC pipeline facade
+"""ModellingSequence: the MAP -> Laplace -> SVI -> HMC pipeline facade
 (port of :mod:`gigalens_tpu.inference.sequence`).
 
-Only the MAP phase is ported; SVI, HMC, SMC and the Laplace initializer
-raise ``NotImplementedError`` naming their ROADMAP item. Each phase builds
-its own ``LensSimulator`` with the right batch size, like the reference.
+Each phase builds its own ``LensSimulator`` with the right batch size, like
+the reference: MAP and SVI on the fast path (fused render and, on the card,
+the DFT conv), HMC on the exact path (the FFT conv), the Laplace Hessian on
+the unfused render with the FFT conv. Every phase runs on the sequence's
+device. SMC raises ``NotImplementedError`` naming its ROADMAP item (M16);
+``fit(checkpoint_dir=...)`` names M19.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import torch
 
-from gigalens_tpu_torch.inference.map import best_start, fit_map
+from gigalens_tpu_torch.inference import optim
+from gigalens_tpu_torch.inference.hmc import fit_hmc
+from gigalens_tpu_torch.inference.map import best_start, fit_map, laplace_scale_tril
 from gigalens_tpu_torch.inference.optim import GradientTransformation
+from gigalens_tpu_torch.inference.svi import fit_svi
 from gigalens_tpu_torch.simulator import LensSimulator
+from gigalens_tpu_torch.utils.summary import summarize_posterior
 
 
 def phase_simulator(cache: dict, sim_config, phys_model, bs: int,
@@ -40,6 +48,21 @@ def phase_simulator(cache: dict, sim_config, phys_model, bs: int,
     return sim
 
 
+def map_optimizer(num_steps: int, lr: float = 1e-2) -> GradientTransformation:
+    """The MAP recipe: Adam under a power-0.5 decay from ``lr`` to ``lr / 3``
+    over exactly ``num_steps`` (JAX's jitted power-0.5 schedule is NaN past
+    its transition, so it is never run past it)."""
+    return optim.chain(optim.scale_by_adam(), optim.scale_by_schedule(
+        optim.polynomial_schedule(-lr, -lr / 3, 0.5, num_steps)))
+
+
+def svi_optimizer(num_steps: int, lr: float = 3e-3) -> GradientTransformation:
+    """The SVI recipe: Adam warmed up quadratically from 1e-6 to ``lr`` over
+    the first fifth of ``num_steps``."""
+    return optim.chain(optim.scale_by_adam(), optim.scale_by_schedule(
+        optim.polynomial_schedule(-1e-6, -lr, 2, max(num_steps // 5, 1))))
+
+
 def _not_ported(what, item):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
@@ -64,12 +87,15 @@ class ModellingSequence:
         n_samples: int = 500,
         num_steps: int = 350,
         seed: int = 0,
+        segment_steps: int = 0,
+        progress=None,
     ):
         """Multi-start MAP; returns the (n_samples, d) final z."""
         sim = self._sim(n_samples)
         z, _ = fit_map(
             self.prob_model, sim, optimizer, start=start, n_samples=n_samples,
-            num_steps=num_steps, seed=seed,
+            num_steps=num_steps, seed=seed, segment_steps=segment_steps,
+            progress=progress,
         )
         return z
 
@@ -77,14 +103,131 @@ class ModellingSequence:
         """Highest-posterior MAP sample, shaped (1, d)."""
         return best_start(self.prob_model, self._sim(z.shape[0]), z)
 
+    def summarize(self, res):
+        """Named physical-space posterior summary of an :class:`HMCResult`
+        (see :func:`gigalens_tpu_torch.utils.summarize_posterior`)."""
+        return summarize_posterior(self.prob_model.prior, res.samples,
+                                   divergences=getattr(res, "divergences", None))
+
     def laplace_scale_tril(self, z_best, method: str = "fd"):
-        _not_ported("laplace_scale_tril", "M8")
+        """chol of the Laplace covariance at the MAP, as a numpy (d, d)
+        array: the recommended ``init_scales`` for SVI. ``method="fd"``
+        (central differences of one batched gradient, bs = 2d) or
+        ``"exact"`` (double backward, bs = 1). Both run on the unfused
+        render with the FFT conv, on the sequence's device."""
+        cfg = dataclasses.replace(self.sim_config, use_fused_render=False, psf_mode="fft")
+        bs = 2 * torch.as_tensor(z_best).numel() if method == "fd" else 1
+        sim = LensSimulator(self.phys_model, cfg, bs=bs, device=self.device)
+        L = laplace_scale_tril(self.prob_model, sim, z_best, method=method)
+        return L.cpu().numpy()
 
-    def SVI(self, *args, **kwargs):
-        _not_ported("SVI", "M9")
+    def SVI(
+        self,
+        start,
+        optimizer: GradientTransformation,
+        n_vi: int = 250,
+        init_scales=1e-3,
+        num_steps: int = 500,
+        seed: int = 0,
+        segment_steps: int = 0,
+        full_rank: bool = True,
+        progress=None,
+    ):
+        """Full-rank (or mean-field) SVI on the fast simulator; returns
+        ``(q_z, losses)``."""
+        return fit_svi(
+            self.prob_model, self._sim(n_vi), start, optimizer, n_vi=n_vi,
+            init_scales=init_scales, num_steps=num_steps, seed=seed,
+            segment_steps=segment_steps, full_rank=full_rank, progress=progress,
+        )
 
-    def HMC(self, *args, **kwargs):
-        _not_ported("HMC", "M10")
+    def HMC(
+        self,
+        q_z,
+        init_eps: float = 0.3,
+        init_l: int = 3,
+        n_hmc: int = 50,
+        num_burnin_steps: int = 250,
+        num_results: int = 750,
+        max_leapfrog_steps: int = 30,
+        trajectory_adaptation: str = "chees",
+        mass_adaptation=True,
+        seed: int = 0,
+        seeds=None,
+        segment_steps: int = 0,
+        progress=None,
+    ):
+        """Preconditioned HMC on the exact simulator; ``seeds`` (a sequence)
+        runs one independently adapted group of ``n_hmc`` chains per seed."""
+        n_total = n_hmc * (len(seeds) if seeds is not None and len(seeds) > 1 else 1)
+        return fit_hmc(
+            self.prob_model, self._sim(n_total, exact=True), q_z,
+            init_eps=init_eps, init_l=init_l, n_hmc=n_hmc,
+            num_burnin_steps=num_burnin_steps, num_results=num_results,
+            max_leapfrog_steps=max_leapfrog_steps,
+            trajectory_adaptation=trajectory_adaptation,
+            mass_adaptation=mass_adaptation, seed=seed, seeds=seeds,
+            segment_steps=segment_steps, progress=progress,
+        )
 
     def SMC(self, *args, **kwargs):
         _not_ported("SMC", "M16")
+
+    def fit(
+        self,
+        n_samples: int = 500,
+        map_steps: int = 350,
+        n_vi: int = 1000,
+        vi_steps: int = 300,
+        n_hmc: int = 50,
+        num_burnin_steps: int = 250,
+        num_results: int = 750,
+        map_lr: float = 1e-2,
+        svi_lr: float = 3e-3,
+        laplace_method: str = "fd",
+        seed: int = 0,
+        checkpoint_dir=None,
+        progress=None,
+    ):
+        """One-call pipeline: MAP -> Laplace init -> SVI -> HMC.
+
+        Multi-start Adam MAP under a polynomial-decay schedule, SVI started
+        from the Laplace covariance at the best MAP point, and ChEES-adapted
+        preconditioned HMC started from the surrogate (seed + 2).
+        ``progress(phase, step, value)`` receives per-segment feedback.
+        Returns a dict ``z_map, best, q_z, losses, hmc, summary, times``.
+        """
+        if checkpoint_dir is not None:
+            _not_ported("fit(checkpoint_dir=...) (PipelineCheckpointer)", "M19")
+
+        def _progress(phase):
+            if progress is None:
+                return None
+            return lambda step, value: progress(phase, step, value)
+
+        def _sync():
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+        times = {}
+        t0 = time.time()
+        z_map = self.MAP(map_optimizer(map_steps, map_lr), n_samples=n_samples, num_steps=map_steps, seed=seed,
+                         progress=_progress("map"))
+        best = self.best_map_start(z_map)
+        _sync()
+        times["map"] = time.time() - t0
+
+        t0 = time.time()
+        L0 = self.laplace_scale_tril(best, method=laplace_method)
+        q_z, losses = self.SVI(best, svi_optimizer(vi_steps, svi_lr), n_vi=n_vi, num_steps=vi_steps, init_scales=L0,
+                               seed=seed + 1, progress=_progress("svi"))
+        _sync()
+        times["svi"] = time.time() - t0
+
+        t0 = time.time()
+        res = self.HMC(q_z, n_hmc=n_hmc, num_burnin_steps=num_burnin_steps,
+                       num_results=num_results, seed=seed + 2, progress=_progress("hmc"))
+        _sync()
+        times["hmc"] = time.time() - t0
+        return dict(z_map=z_map, best=best, q_z=q_z, losses=losses, hmc=res,
+                    summary=self.summarize(res), times=times)

@@ -18,6 +18,7 @@ _DISTRIBUTIONS = {
     "LogNormal": ("loc", "scale"),
     "Uniform": ("low", "high"),
     "TruncatedNormal": ("loc", "scale", "low", "high"),
+    "HalfNormal": ("scale",),
 }
 
 
@@ -109,3 +110,11 @@ def sim_config_from_reference(cfg) -> SimulatorConfig:
         psf_mode=cfg.psf_mode,
         use_fused_render=cfg.use_fused_render,
     )
+
+
+def mvn_from_reference(q_z, device="cpu") -> dist.MultivariateNormalTriL:
+    """The port's MultivariateNormalTriL of a JAX surrogate (``loc`` and
+    ``scale_tril`` read as numpy), e.g. to start the port's HMC or SVI from
+    the JAX package's own state."""
+    return dist.MultivariateNormalTriL(np.array(q_z.loc), np.array(q_z.scale_tril),
+                                       device=device)

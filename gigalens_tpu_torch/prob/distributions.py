@@ -1,6 +1,7 @@
-"""Prior distributions (PyTorch port of :mod:`gigalens_tpu.prob.distributions`).
+"""Distributions (PyTorch port of :mod:`gigalens_tpu.prob.distributions`).
 
-Normal, LogNormal, Uniform and TruncatedNormal: each carries an
+The prior families Normal, LogNormal, Uniform, TruncatedNormal and
+HalfNormal each carry an
 ``event_shape`` inferred from broadcasting its parameters, the same default
 unconstraining ``bijector`` as the JAX package, and reparameterized
 ``sample(generator, sample_shape)`` drawing from a ``torch.Generator`` on
@@ -10,6 +11,9 @@ Scalar parameters are kept as Python floats rounded to float32 (the JAX
 package stores float32 arrays), so they broadcast against tensors on any
 device without a host-to-device copy; array parameters are float32 tensors
 moved to the operand's device where used.
+
+:class:`MultivariateNormalTriL` (with its FullCovariance and Diag
+constructors) is the SVI surrogate and the HMC momentum preconditioner.
 """
 from __future__ import annotations
 
@@ -185,3 +189,81 @@ class TruncatedNormal(Distribution):
     @property
     def bijector(self):
         return bij.Sigmoid(self.low, self.high)
+
+
+class HalfNormal(Distribution):
+    def __init__(self, scale):
+        self.event_shape = _broadcast_event_shape(scale)
+        self.scale = _param(scale)
+
+    def sample(self, generator, sample_shape=()):
+        eps = self._draw(torch.randn, generator, sample_shape)
+        return torch.abs(eps) * _on(self.scale, eps)
+
+    def log_prob(self, x):
+        scale = _on(self.scale, x)
+        z = x / scale
+        lp = -0.5 * (z**2 + _LOG_2PI) - _log(scale) + math.log(2.0)
+        return self._sum_event(lp.masked_fill(x < 0, -math.inf))
+
+    @property
+    def bijector(self):
+        return bij.Softplus()
+
+
+def _device_of(loc, device):
+    if device is not None:
+        return device
+    return loc.device if isinstance(loc, torch.Tensor) else "cpu"
+
+
+class MultivariateNormalTriL:
+    """MVN with lower-triangular scale factor: x = loc + L @ eps.
+
+    The SVI surrogate posterior and the HMC momentum preconditioner.
+    ``loc`` (d,) and ``scale_tril`` (d, d) become float32 tensors on
+    ``device`` (default: ``loc``'s device if it is a tensor, else the CPU).
+    """
+
+    def __init__(self, loc, scale_tril, device=None):
+        device = _device_of(loc, device)
+        self.loc = torch.as_tensor(loc, dtype=torch.float32, device=device)
+        self.scale_tril = torch.as_tensor(scale_tril, dtype=torch.float32, device=device)
+        self.d = self.loc.shape[-1]
+
+    def mean(self):
+        return self.loc
+
+    def covariance(self):
+        return self.scale_tril @ self.scale_tril.T
+
+    def sample(self, generator: torch.Generator, sample_shape=()):
+        if isinstance(sample_shape, int):
+            sample_shape = (sample_shape,)
+        eps = torch.randn((*sample_shape, self.d), generator=generator,
+                          device=generator.device, dtype=self.loc.dtype)
+        return self.loc + eps @ self.scale_tril.T
+
+    def log_prob(self, x):
+        diff = torch.as_tensor(x, dtype=self.loc.dtype, device=self.loc.device) - self.loc
+        batch_shape = diff.shape[:-1]
+        # one triangular solve L y = diff^T for all batch elements
+        flat = diff.reshape(-1, self.d).T  # (d, N)
+        y = torch.linalg.solve_triangular(self.scale_tril, flat, upper=False)
+        quad = torch.sum(y**2, dim=0).reshape(batch_shape)
+        half_log_det = torch.sum(torch.log(torch.abs(torch.diagonal(self.scale_tril))))
+        return -0.5 * (quad + self.d * _LOG_2PI) - half_log_det
+
+
+class MultivariateNormalFullCovariance(MultivariateNormalTriL):
+    def __init__(self, loc, covariance_matrix, device=None):
+        device = _device_of(loc, device)
+        cov = torch.as_tensor(covariance_matrix, dtype=torch.float32, device=device)
+        super().__init__(loc, torch.linalg.cholesky(cov), device=device)
+
+
+class MultivariateNormalDiag(MultivariateNormalTriL):
+    def __init__(self, loc, scale_diag, device=None):
+        device = _device_of(loc, device)
+        diag = torch.as_tensor(scale_diag, dtype=torch.float32, device=device)
+        super().__init__(loc, torch.diag(diag), device=device)

@@ -1,0 +1,12 @@
+from gigalens_tpu_torch.utils.diagnostics import (
+    effective_sample_size,
+    potential_scale_reduction,
+)
+from gigalens_tpu_torch.utils.summary import format_summary, summarize_posterior
+
+__all__ = [
+    "effective_sample_size",
+    "potential_scale_reduction",
+    "summarize_posterior",
+    "format_summary",
+]
