@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Drives the PyTorch/CUDA port (gigalens_tpu_torch) once on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # everything below
+    python3 chip_smoke.py --kernels   # steps 1-3 only, a development aid: its
+                                      # kernels line says "partial": true, has no
+                                      # launch counts, and no ok line follows
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the hand-written kernels from gigalens_tpu_torch/csrc/ with nvcc
@@ -10,7 +13,16 @@
    main-path shapes (bs=500 samples, 25,600 supersampled pixels, niter=23;
    the PSF conv at (500, 160, 160) and its transpose at (500, 80, 80)), on
    inputs drawn from the bench prior, and times kernel and twin with CUDA
-   events.
+   events. K4 is checked by both routes: the direct strided sum that the
+   main path takes and the DFT chain it replaced (same inputs, same run),
+   beside one PyTorch call of the same function (F.conv2d and
+   F.conv_transpose2d, cuDNN with TF32 off: timed only, the port never
+   calls it). K3 and K4-direct must give bitwise-equal results twice. Each
+   kernel's bound is the larger of its operations over the FP32 peak and
+   its bytes over the memory rate (K4's operations are its function's,
+   counted from its shapes and the same for both routes, the renders' by
+   counting the elementwise operations of their plain
+   versions on the same inputs).
 4. Checks the composable render's kernels the same way: K5 (summed) and K7
    at the shapelet-source family's full width (family S: EPL(23)+Shear,
    SersicEllipse lens light, Shapelets(6) source with sampled amplitudes;
@@ -32,10 +44,10 @@
    full configuration with HMC seed 2): MAP 500 x 350, FD Laplace, SVI
    1000 x 300, HMC 50 chains x (250 + 750) ChEES, under the bench gates
    (best-MAP and posterior red-chi2 <= 1.1, max split-R-hat <= 1.02),
-   with K2/K3/K4 required in MAP and SVI and K2/K3 without K4 in HMC;
-   then checks K2/K3 at the SVI (1000 surrogate draws) and HMC (the 50
-   chains' last states) shapes, and K4 at the SVI shape, against their
-   float64 twins.
+   with K2/K3 and the direct K4 both ways required in MAP and SVI and K2/K3
+   without any K4 in HMC; then checks K2/K3 at the SVI (1000 surrogate
+   draws) and HMC (the 50 chains' last states) shapes, and the direct K4 at
+   the SVI shape, against their float64 twins.
 7. Ends with the card line, a JSON line of per-kernel results and the ok
    line.
 
@@ -44,6 +56,7 @@ nonzero before the ok line. Without a CUDA device it exits nonzero at once.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -82,6 +95,10 @@ BUILDER_GRAD_REL = 2e-3
 COVER_TOL = {"nfw_ellipse_halo": (5e-4, 5e-3)}
 COVER_DEFAULT = (1e-4, 2e-3)
 COVER_BS = 16
+
+# peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): FP32 outside
+# the tensor cores, and HBM3
+FP32_PEAK, HBM_RATE = 67e12, 3.35e12
 
 BS, NUM_PIX, SUPERSAMPLE, DELTA_PIX = 500, 80, 2, 0.065
 MAP_STEPS = 50
@@ -152,6 +169,66 @@ def cuda_ms(fn, reps=10, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+def bound(ops, tensors):
+    """(bound_ms, bound_by): the larger of ``ops`` FP32 operations over the
+    FP32 peak and the bytes of ``tensors`` (each input read once, each
+    output written once) over the memory rate."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    t_ops, t_bytes = ops / FP32_PEAK, nbytes / HBM_RATE
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def k4_bound(conv, arg, out):
+    """K4's bound (either route, either direction): its function's work,
+    counted from shapes and not from one algorithm's (the direct kernel's
+    padded taps, the chain's DFT products). 2 FP32 operations per
+    multiply-add of the direct sum, out pixels x pooled-kernel taps per
+    sample; bytes of the input, the pooled kernel and the output."""
+    import torch
+
+    kh, kw = conv.kh + conv.pool - 1, conv.kw + conv.pool - 1
+    ops = 2 * arg.shape[0] * conv.out_h * conv.out_w * kh * kw
+    return bound(ops, [arg, torch.empty((kh, kw)), out])
+
+
+def count_ops(fn):
+    """Operations of one call of a plain version: each elementwise op counts
+    its output's elements, each sum or cumsum its input's (an exp or a
+    division counts as one; indexing, copies and fills count nothing)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    reductions = (torch.ops.aten.sum, torch.ops.aten.cumsum)
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if torch.Tag.pointwise in func.tags and isinstance(out, torch.Tensor):
+                self.n += out.numel()
+            elif func.overloadpacket in reductions:
+                self.n += args[0].numel()
+            return out
+
+    with Count() as c:
+        fn()
+    return c.n
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """cuDNN in full FP32 for the library yardsticks, restored after."""
+    import torch
+
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+
+
 def card_line():
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -193,9 +270,7 @@ def chunked(fn, n, step, *tensors):
 def kernel_checks():
     import torch
 
-    from gigalens_tpu_torch.ops.cuda import dft_conv as dc
     from gigalens_tpu_torch.ops.cuda import fused_render as fr
-    from gigalens_tpu_torch.ops.psf import PSFConv, average_pool
     from gigalens_tpu_torch.simulator import LensSimulator
 
     dev = torch.device("cuda")
@@ -220,11 +295,16 @@ def kernel_checks():
     e1 = check_close("K1 vs f64 twin", out_k, out64, FWD_RTOL, FWD_ATOL)
     ms = cuda_ms(lambda: fr.fused_render_fwd(params, x, y, niter))
     pms = cuda_ms(lambda: fr.fused_render_fwd_reference(params, x, y, niter), reps=3, warmup=1)
+    ops_fwd = count_ops(lambda: fr.fused_render_fwd_reference(params, x, y, niter))
+    b_ms, b_by = bound(ops_fwd, [params, x, y, out_k])
     kernels.append(dict(name="fused_render_fwd<false> (K1)", key="fused_render_fwd",
                         route="cuda", source="gigalens_tpu_torch/csrc/fused_render.cu",
                         replaces="gigalens_tpu/ops/pallas/fused_render.py:265",
-                        max_abs_err=e1, ms=ms, plain_ms=pms))
-    print(f"K1: max|err| vs f64 {e1:.3e}  kernel {ms:.3f} ms  twin {pms:.3f} ms", flush=True)
+                        max_abs_err=e1, ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                        library_ms=None))
+    print(f"K1: max|err| vs f64 {e1:.3e}  kernel {ms:.3f} ms  twin {pms:.3f} ms  bound "
+          f"{b_ms:.3f} ms ({b_by}, {ops_fwd / (BS * npix):.1f} ops per sample-pixel)",
+          flush=True)
 
     # K2: forward + Omega residuals
     out_k2, ox_k, oy_k = fr.fused_render_fwd(params, x, y, niter, save_omega=True)
@@ -237,17 +317,47 @@ def kernel_checks():
     check_close("K2 ox vs f32 twin", ox_k, ox32, 0.0, OMEGA_ATOL)
     check_close("K2 oy vs f32 twin", oy_k, oy32, 0.0, OMEGA_ATOL)
     ms = cuda_ms(lambda: fr.fused_render_fwd(params, x, y, niter, save_omega=True))
+    b_ms, b_by = bound(ops_fwd, [params, x, y, out_k2, ox_k, oy_k])
     kernels.append(dict(name="fused_render_fwd<true> (K2)", key="fused_render_fwd_omega",
                         route="cuda", source="gigalens_tpu_torch/csrc/fused_render.cu",
                         replaces="gigalens_tpu/ops/pallas/fused_render.py:246",
-                        max_abs_err=max(e2, e_om), ms=ms, plain_ms=pms))
+                        max_abs_err=max(e2, e_om), ms=ms, plain_ms=pms, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=None))
     print(f"K2: max|err| out {e2:.3e} omega {e_om:.3e}  kernel {ms:.3f} ms  "
-          f"twin {pms:.3f} ms", flush=True)
+          f"twin {pms:.3f} ms  bound {b_ms:.3f} ms ({b_by})", flush=True)
     del out64, ox64, oy64
 
     # K3: parameter gradient, against torch autograd of the twin in f64
     ct = torch.randn((BS, npix), generator=gen, device=dev)
-    g_k = fr.fused_render_bwd(params, x, y, ox_k, oy_k, ct, niter)
+    kernels.append(k3_check(params, x, y, ox_k, oy_k, ct, niter, f"bench bs={BS}",
+                            (ox32, oy32)))
+    del ox32, oy32
+
+    # K4: the PSF conv on the K1 images, by the direct route the main path
+    # takes and by the DFT chain it replaced (same inputs, same run)
+    conv = sim._conv
+    if conv is None or conv.mode != "dft" or conv.route != "direct":
+        raise AssertionError(f"the CUDA simulator should take the direct dft conv, got {conv}")
+    xin = out_k.reshape(BS, NUM_PIX * SUPERSAMPLE, NUM_PIX * SUPERSAMPLE).contiguous()
+    ctc = torch.randn((BS, NUM_PIX, NUM_PIX), generator=gen, device=dev)
+    print(f"K4: route {conv.route}, pooled kernel {tuple(conv._direct.w_ref.shape)}, "
+          f"fshape {conv.fshape}", flush=True)
+    rows, lib = direct_checks(conv, xin, ctc, f"bench bs={BS}")
+    kernels += rows + chain_checks(conv, xin, ctc, lib)
+    ragged_checks(params, x, y, niter, gen)
+    return kernels
+
+
+def k3_check(params, x, y, ox, oy, ct, niter, where, omega32=None):
+    """K3 against float64 torch autograd of the forward twin (and, given the
+    twin's own Omega, the float32 hand-VJP twin); bitwise equal over two
+    calls; timed against the float32 twin. Returns its kernels row."""
+    import torch
+
+    from gigalens_tpu_torch.ops.cuda import fused_render as fr
+
+    bs = params.shape[0]
+    g_k = fr.fused_render_bwd(params, x, y, ox, oy, ct, niter)
     torch.cuda.synchronize()
 
     def grad64(p, c):
@@ -255,75 +365,149 @@ def kernel_checks():
         out = fr.fused_render_reference(p, x.double(), y.double(), niter)
         return torch.autograd.grad((out * c.double()).sum(), p)[0]
 
-    g64 = chunked(grad64, BS, 25, params, ct)
-    rel3, e3 = check_rel("K3 vs f64 autograd of the twin", g_k, g64, GRAD_REL, dim=0)
-    g32 = fr.fused_render_bwd_reference(params, x, y, ox32, oy32, ct, niter)
-    rel3_32, _ = check_rel("K3 vs f32 hand-VJP twin", g_k, g32, GRAD_REL, dim=0)
-    # the two-pass tile reduction has a fixed order: bitwise repeatable
-    if not torch.equal(g_k, fr.fused_render_bwd(params, x, y, ox_k, oy_k, ct, niter)):
-        raise AssertionError("K3 is not deterministic from run to run")
-    ms = cuda_ms(lambda: fr.fused_render_bwd(params, x, y, ox_k, oy_k, ct, niter))
+    rel, err = check_rel(f"K3 vs f64 autograd of the twin ({where})", g_k,
+                         chunked(grad64, bs, 25, params, ct), GRAD_REL, dim=0)
+    ox32, oy32 = omega32 if omega32 is not None else (ox, oy)
+    if omega32 is not None:
+        g32 = fr.fused_render_bwd_reference(params, x, y, ox32, oy32, ct, niter)
+        rel32, _ = check_rel(f"K3 vs f32 hand-VJP twin ({where})", g_k, g32, GRAD_REL, dim=0)
+        print(f"K3 ({where}): vs f32 two-stage twin {rel32:.3e}", flush=True)
+        del g32
+    # the fixed-order reduction and epilogue: bitwise repeatable
+    if not torch.equal(g_k, fr.fused_render_bwd(params, x, y, ox, oy, ct, niter)):
+        raise AssertionError(f"K3 is not deterministic from run to run ({where})")
+    ms = cuda_ms(lambda: fr.fused_render_bwd(params, x, y, ox, oy, ct, niter))
     pms = cuda_ms(lambda: fr.fused_render_bwd_reference(params, x, y, ox32, oy32, ct, niter),
                   reps=3, warmup=1)
-    kernels.append(dict(name="fused_render_bwd (K3)", key="fused_render_bwd", route="cuda",
-                        source="gigalens_tpu_torch/csrc/fused_render.cu",
-                        replaces="gigalens_tpu/ops/pallas/fused_render.py:299",
-                        max_abs_err=e3, ms=ms, plain_ms=pms))
-    print(f"K3: col-rel err vs f64 autograd {rel3:.3e} (vs f32 twin {rel3_32:.3e})  "
-          f"kernel {ms:.3f} ms  twin {pms:.3f} ms", flush=True)
-    del g64, ox32, oy32, g32
+    ops = count_ops(lambda: fr.fused_render_bwd_reference(params, x, y, ox32, oy32, ct, niter))
+    b_ms, b_by = bound(ops, [params, x, y, ox, oy, ct, g_k])
+    print(f"K3 ({where}): col-rel err vs f64 autograd {rel:.3e}, bitwise repeatable  kernel "
+          f"{ms:.3f} ms  twin {pms:.3f} ms  bound {b_ms:.3f} ms ({b_by}, "
+          f"{ops / (bs * x.shape[0]):.1f} ops per sample-pixel)", flush=True)
+    return dict(name=f"fused_render_bwd (K3) at {where}", key="fused_render_bwd", route="cuda",
+                source="gigalens_tpu_torch/csrc/fused_render.cu",
+                replaces="gigalens_tpu/ops/pallas/fused_render.py:299", max_abs_err=err,
+                ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
-    # K4: the PSF conv (forward and transpose) on the K1 images
-    conv = sim._conv
-    if conv is None or conv.mode != "dft":
-        raise AssertionError(f"the CUDA simulator should pick the dft conv, got {conv}")
-    xin = out_k.reshape(BS, NUM_PIX * SUPERSAMPLE, NUM_PIX * SUPERSAMPLE).contiguous()
-    ctc = torch.randn((BS, NUM_PIX, NUM_PIX), generator=gen, device=dev)
+
+def direct_checks(conv, xin, ctc, where):
+    """K4's direct route both ways: against the float64 plain version (the
+    explicit tap sums), bitwise equal over two calls, timed against the
+    float32 plain version and against one PyTorch call of the same function
+    (F.conv2d / F.conv_transpose2d, cuDNN without TF32; checked against the
+    same reference). Returns (rows, {direction: library ms})."""
+    import torch
+    import torch.nn.functional as F
+
+    from gigalens_tpu_torch.ops.cuda import direct_conv as dcv
+
+    d = conv._direct
+    p, bs = d.pool, xin.shape[0]
+    w64 = d.w_ref.double()
+    rows, lib = [], {}
+    for direction, arg in (("fwd", xin), ("transpose", ctc)):
+        if direction == "fwd":
+            def plain(a, w=d.w_ref):
+                return dcv.direct_conv_reference(a, w, p, d.oy, d.ox)
+
+            def library():
+                return F.conv2d(arg[:, None], d.w_ref[None, None], stride=p, padding=d.oy)[:, 0]
+        else:
+            def plain(a, w=d.w_ref):
+                return dcv.direct_conv_transpose_reference(a, w, p, d.oy, d.ox, d.h, d.w)
+
+            def library():
+                return F.conv_transpose2d(arg[:, None], d.w_ref[None, None], stride=p,
+                                          padding=d.oy)[:, 0]
+        got = dcv.direct_conv_cuda(arg, d, direction)
+        torch.cuda.synchronize()
+        ref = chunked(lambda a: plain(a.double(), w64), bs, 100, arg)
+        r, e = check_rel(f"K4 direct {direction} vs f64 plain ({where})", got, ref, CONV_REL)
+        if not torch.equal(got, dcv.direct_conv_cuda(arg, d, direction)):
+            raise AssertionError(f"K4 direct {direction} is not deterministic ({where})")
+        with no_tf32():
+            r_lib, _ = check_rel(f"library call {direction} vs f64 plain ({where})", library(),
+                                 ref, CONV_REL)
+            lib[direction] = cuda_ms(library)
+        del ref
+        ms = cuda_ms(lambda: dcv.direct_conv_cuda(arg, d, direction))
+        pms = cuda_ms(lambda: plain(arg), reps=2, warmup=1)
+        b_ms, b_by = k4_bound(conv, arg, got)
+        rows.append(dict(name=f"direct_conv {direction} (K4 direct) at {where}",
+                         key=f"direct_conv_{direction}", route="cuda",
+                         source="gigalens_tpu_torch/csrc/direct_conv.cu",
+                         replaces="gigalens_tpu/ops/pallas/dft_conv.py:95", max_abs_err=e,
+                         ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib[direction]))
+        print(f"K4 direct {direction} ({where}): rel err vs f64 {r:.3e} (library call "
+              f"{r_lib:.3e}), bitwise repeatable  kernel {ms:.3f} ms  plain {pms:.3f} ms  "
+              f"library {lib[direction]:.3f} ms  bound {b_ms:.3f} ms ({b_by})", flush=True)
+    return rows, lib
+
+
+def chain_checks(conv, xin, ctc, lib):
+    """K4's DFT chain (csrc/dft_conv.cu), the route for PSFs too large for
+    the direct kernel, on the same inputs: against the float64 einsum twin
+    and the float64 FFT conv, timed beside the direct route's numbers."""
+    import torch
+
+    from gigalens_tpu_torch.ops.cuda import dft_conv as dc
+    from gigalens_tpu_torch.ops.psf import PSFConv, average_pool, dft_factors
+
+    dev, bs = xin.device, xin.shape[0]
+    chain = dc.DFTConv(*dft_factors(conv.kernel, (conv.h, conv.w), conv.pool), device=dev)
     fft64 = PSFConv(conv.kernel, (conv.h, conv.w), mode="fft", device=dev)
-    print(f"K4: fshape {conv.fshape}", flush=True)
+    rows = []
     # one pallas_call serves both directions (the VJP runs it on the
     # transposed factor set), so both rows replace the same site
-    for direction, mats, arg, key in (
-        ("fwd", conv._dft.fwd_mats, xin, "dft_conv_fwd"),
-        ("transpose", conv._dft.bwd_mats, ctc, "dft_conv_transpose"),
-    ):
+    for direction, mats, arg in (("fwd", chain.fwd_mats, xin),
+                                 ("transpose", chain.bwd_mats, ctc)):
         got = dc.dft_conv_cuda(arg, mats, direction)
         torch.cuda.synchronize()
         m64 = [m.double() for m in mats]
-        ref64 = chunked(lambda a: dc.dft_conv_reference(a.double(), m64), BS, 100, arg)
-        r_a, e4 = check_rel(f"K4 {direction} vs f64 einsum twin", got, ref64, CONV_REL)
+        ref64 = chunked(lambda a: dc.dft_conv_reference(a.double(), m64), bs, 100, arg)
+        r_a, e4 = check_rel(f"K4 chain {direction} vs f64 einsum twin", got, ref64, CONV_REL)
+        del ref64
         if direction == "fwd":
-            fref = chunked(lambda a: average_pool(fft64(a.double()), SUPERSAMPLE), BS, 100, arg)
+            fref = chunked(lambda a: average_pool(fft64(a.double()), SUPERSAMPLE), bs, 100, arg)
         else:
             def vjp(a):
                 z = torch.zeros((a.shape[0], conv.h, conv.w), dtype=torch.float64,
                                 device=dev, requires_grad=True)
                 out = average_pool(fft64(z), SUPERSAMPLE)
                 return torch.autograd.grad(out, z, a.double())[0]
-            fref = chunked(vjp, BS, 100, arg)
-        r_b, _ = check_rel(f"K4 {direction} vs f64 fft conv", got, fref, CONV_REL)
+            fref = chunked(vjp, bs, 100, arg)
+        r_b, _ = check_rel(f"K4 chain {direction} vs f64 fft conv", got, fref, CONV_REL)
+        del fref
         ms = cuda_ms(lambda: dc.dft_conv_cuda(arg, mats, direction))
         pms = cuda_ms(lambda: dc.dft_conv_reference(arg, mats))
-        kernels.append(dict(name=f"dft_conv {direction} (K4)", key=key, route="cuda",
-                            source="gigalens_tpu_torch/csrc/dft_conv.cu",
-                            replaces="gigalens_tpu/ops/pallas/dft_conv.py:95",
-                            max_abs_err=e4, ms=ms, plain_ms=pms))
-        print(f"K4 {direction}: rel err vs f64 twin {r_a:.3e}, vs f64 fft {r_b:.3e}  "
-              f"kernel {ms:.3f} ms  twin {pms:.3f} ms", flush=True)
-    ragged_checks(params, x, y, niter, gen)
-    return kernels
+        b_ms, b_by = k4_bound(conv, arg, got)  # the same as the direct route's
+        rows.append(dict(name=f"dft_conv {direction} (K4 chain) at bench bs={bs}",
+                         key=f"dft_conv_{direction}", route="cuda",
+                         source="gigalens_tpu_torch/csrc/dft_conv.cu",
+                         replaces="gigalens_tpu/ops/pallas/dft_conv.py:95", max_abs_err=e4,
+                         ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib[direction]))
+        print(f"K4 chain {direction}: rel err vs f64 twin {r_a:.3e}, vs f64 fft {r_b:.3e}  "
+              f"kernel {ms:.3f} ms  twin {pms:.3f} ms  bound {b_ms:.3f} ms ({b_by})",
+              flush=True)
+    return rows
 
 
 def ragged_checks(params, x, y, niter, gen):
     """Shapes off the kernels' tile grids: 3 samples x 1000 pixels (a band
-    through the image center; not a multiple of the 256-pixel tile), and a
+    through the image center; not a multiple of the 256-pixel tile) for
+    K1-K3; the direct K4 on 3x40x40 with a 13-px PSF, on 2x170x170 with the
+    bench PSF's width (85x85 outputs: neither edge a multiple of the 80x80
+    block), and at pools 3 and 1 (its other instantiations); the chain on a
     40x40 conv with a 9x9 PSF (no GEMM dimension a multiple of 64)."""
     import numpy as np
     import torch
 
     from gigalens_tpu_torch.ops.cuda import dft_conv as dc
+    from gigalens_tpu_torch.ops.cuda import direct_conv as dcv
     from gigalens_tpu_torch.ops.cuda import fused_render as fr
-    from gigalens_tpu_torch.ops.psf import PSFConv
+    from gigalens_tpu_torch.ops.psf import dft_factors
 
     mid = x.shape[0] // 2
     p, xr, yr = params[:3].contiguous(), x[mid - 500:mid + 500], y[mid - 500:mid + 500]
@@ -341,16 +525,36 @@ def ragged_checks(params, x, y, niter, gen):
     check_rel("K3 ragged", fr.fused_render_bwd(p, xr, yr, ox, oy, ct, niter), want,
               GRAD_REL, dim=0)
 
-    kern = np.random.default_rng(0).random((9, 9)).astype(np.float32)
-    conv = PSFConv(kern / kern.sum(), (40, 40), mode="dft", pool=2, device=out.device)
-    for direction, mats, shape in (("fwd", conv._dft.fwd_mats, (3, 40, 40)),
-                                   ("transpose", conv._dft.bwd_mats, (3, 20, 20))):
-        a = torch.randn(shape, generator=gen, device=out.device)
+    rng = np.random.default_rng(0)
+    dev = out.device
+    worst = []
+    for n, h, kpx, pool in ((3, 40, 13, 2), (2, 170, 51, 2), (3, 42, 9, 3), (2, 50, 9, 1)):
+        kern = rng.random((kpx, kpx))
+        d = dcv.DirectConv(kern / kern.sum(), (h, h), pool, dev)
+        a = torch.randn((n, h, h), generator=gen, device=dev)
+        c = torch.randn((n, h // pool, h // pool), generator=gen, device=dev)
+        w64 = d.w_ref.double()
+        rf, _ = check_rel(f"K4 direct fwd ragged {n}x{h}x{h} psf {kpx} pool {pool}",
+                          dcv.direct_conv_cuda(a, d, "fwd"),
+                          dcv.direct_conv_reference(a.double(), w64, pool, d.oy, d.ox), CONV_REL)
+        rt, _ = check_rel(f"K4 direct transpose ragged {n}x{h}x{h} psf {kpx} pool {pool}",
+                          dcv.direct_conv_cuda(c, d, "transpose"),
+                          dcv.direct_conv_transpose_reference(c.double(), w64, pool, d.oy, d.ox,
+                                                              h, h), CONV_REL)
+        worst.append(f"{n}x{h}x{h}/{kpx}px/pool {pool}: {rf:.1e} / {rt:.1e}")
+
+    kern = rng.random((9, 9)).astype(np.float32)
+    factors = dft_factors(kern / kern.sum(), (40, 40), 2)
+    chain = dc.DFTConv(*factors, device=dev)
+    for direction, mats, shape in (("fwd", chain.fwd_mats, (3, 40, 40)),
+                                   ("transpose", chain.bwd_mats, (3, 20, 20))):
+        a = torch.randn(shape, generator=gen, device=dev)
         ref = dc.dft_conv_reference(a.double(), [m.double() for m in mats])
-        check_rel(f"K4 {direction} ragged", dc.dft_conv_cuda(a, mats, direction), ref,
+        check_rel(f"K4 chain {direction} ragged", dc.dft_conv_cuda(a, mats, direction), ref,
                   CONV_REL)
-    print("ragged shapes (3 samples x 1000 px; 40x40 conv, fshape "
-          f"{conv.fshape}): K1-K4 match their float64 twins", flush=True)
+    print("ragged shapes: K1-K3 on 3 samples x 1000 px match their float64 twins; K4 direct "
+          "(rel err fwd / transpose) " + "; ".join(worst) + f"; K4 chain on 40x40, fshape "
+          f"{tuple(factors[4].shape)}", flush=True)
 
 
 def twin(spec, p, x, y, summed, extras=()):
@@ -418,18 +622,20 @@ def builder_checks():
         del out64, out32
         ms = cuda_ms(lambda: fb.fused_builder_fwd(spec, params, x, y, (), summed))
         pms = cuda_ms(lambda: twin(spec, params, x, y, summed), reps=3, warmup=1)
+        b_ms, b_by = bound(count_ops(lambda: twin(spec, params, x, y, summed)),
+                           [params, x, y, out_k])
         name = "fused_builder_fwd summed (K5)" if summed else "fused_builder_fwd components (K6)"
         kernels.append(dict(name=name, phase=kind,
                             key="fused_builder_fwd_sum" if summed else "fused_builder_fwd_components",
                             route="cuda", source="gigalens_tpu_torch/csrc/fused_builder.cu",
                             replaces="gigalens_tpu/ops/pallas/fused_builder.py:612",
-                            max_abs_err=e_f, ms=ms, plain_ms=pms))
-        print(f"{name}: max|err| vs f64 {e_f:.3e}  kernel {ms:.3f} ms  twin {pms:.3f} ms",
-              flush=True)
+                            max_abs_err=e_f, ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                            library_ms=None))
+        print(f"{name}: max|err| vs f64 {e_f:.3e}  kernel {ms:.3f} ms  twin {pms:.3f} ms  "
+              f"bound {b_ms:.3f} ms ({b_by})", flush=True)
 
         # backward: K7 against f64 autograd and the f32 hand-VJP twin
         ct = torch.randn(out_k.shape, generator=gen, device=dev)
-        del out_k
         g_k = fb.fused_builder_bwd(spec, params, x, y, (), ct, summed)
         torch.cuda.synchronize()
         g64 = by_samples(lambda p, c: autograd64(spec, p, x, y, c, summed), BS, 25, summed,
@@ -445,14 +651,17 @@ def builder_checks():
         ms = cuda_ms(lambda: fb.fused_builder_bwd(spec, params, x, y, (), ct, summed))
         pms = cuda_ms(lambda: fb.tile_backward_reference(spec, params, x, y, (), ct, summed),
                       reps=3, warmup=1)
+        ops = count_ops(lambda: fb.tile_backward_reference(spec, params, x, y, (), ct, summed))
+        b_ms, b_by = bound(ops, [params, x, y, ct, g_k])
         name = "fused_builder_bwd" + (" (K7)" if summed else " components (K7)")
         kernels.append(dict(name=name, phase=kind, key="fused_builder_bwd", route="cuda",
                             source="gigalens_tpu_torch/csrc/fused_builder.cu",
                             replaces="gigalens_tpu/ops/pallas/fused_builder.py:654",
-                            max_abs_err=e_b, ms=ms, plain_ms=pms))
+                            max_abs_err=e_b, ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                            library_ms=None))
         print(f"{name}: col-rel err vs f64 autograd {rel:.3e} (vs f32 twin {rel32:.3e})  "
-              f"kernel {ms:.3f} ms  twin {pms:.3f} ms", flush=True)
-        del g64, g32, ct
+              f"kernel {ms:.3f} ms  twin {pms:.3f} ms  bound {b_ms:.3f} ms ({b_by})", flush=True)
+        del g64, g32, ct, out_k
         builder_ragged(spec, params, x, y, summed, gen)
     builder_coverage(dev, gen)
     return kernels
@@ -659,36 +868,41 @@ def problem(kind):
                                    exp_time=100.0, device=dev), prior, cfg
 
 
+def direct_route(sim):
+    return sim._conv is not None and sim._conv.mode == "dft" and sim._conv.route == "direct"
+
+
 def main_path(steps):
-    """The bench scene's MAP phase (K1-K4)."""
+    """The bench scene's MAP phase (K1-K3 and the direct K4)."""
 
     def check(sim):
-        if not sim._use_fused or sim._fused_niter is None or sim._conv.mode != "dft":
-            raise AssertionError("the MAP simulator must take K1-K3 and the dft conv")
+        if not sim._use_fused or sim._fused_niter is None or not direct_route(sim):
+            raise AssertionError("the MAP simulator must take K1-K3 and the direct dft conv")
 
     need = ("fused_render_fwd", "fused_render_fwd_omega", "fused_render_bwd",
-            "dft_conv_fwd", "dft_conv_transpose")
+            "direct_conv_fwd", "direct_conv_transpose")
     return map_phase("bench", *problem("bench"), steps, check, need)
 
 
 def builder_check(sim):
-    if not sim._use_fused or sim._fused_spec is None or sim._conv.mode != "dft":
-        raise AssertionError("the family's simulator must take the builder and the dft conv")
+    if not sim._use_fused or sim._fused_spec is None or not direct_route(sim):
+        raise AssertionError("the family's simulator must take the builder and the direct "
+                             "dft conv")
 
 
 def family_path(kind, steps):
-    """Family S's MAP phase (ForwardProbModel through K5/K7 and K4) or
-    family L's (BackwardProbModel and lstsq_simulate through K6/K7 and K4,
-    16 components x BS images per conv)."""
+    """Family S's MAP phase (ForwardProbModel through K5/K7 and the direct
+    K4) or family L's (BackwardProbModel and lstsq_simulate through K6/K7
+    and the direct K4, 16 components x BS images per conv)."""
     fwd = "fused_builder_fwd_sum" if kind == "S" else "fused_builder_fwd_components"
-    need = (fwd, "fused_builder_bwd", "dft_conv_fwd", "dft_conv_transpose")
+    need = (fwd, "fused_builder_bwd", "direct_conv_fwd", "direct_conv_transpose")
     return map_phase(f"family {kind}", *problem(kind), steps, builder_check, need)
 
 
-MAP_SVI_NEED = ("fused_render_fwd_omega", "fused_render_bwd", "dft_conv_fwd",
-                "dft_conv_transpose")
+MAP_SVI_NEED = ("fused_render_fwd_omega", "fused_render_bwd", "direct_conv_fwd",
+                "direct_conv_transpose")
 HMC_NEED = ("fused_render_fwd_omega", "fused_render_bwd")
-HMC_BANNED = ("dft_conv_fwd", "dft_conv_transpose")
+HMC_BANNED = ("direct_conv_fwd", "direct_conv_transpose", "dft_conv_fwd", "dft_conv_transpose")
 # the bench gates: best-MAP and posterior red-chi2 ~ 1, split-R-hat <= 1.02
 CHI2_GATE, RHAT_GATE = 1.1, 1.02
 
@@ -699,8 +913,9 @@ def pipeline_phase():
     HMC 50 chains x (250 + 750) ChEES, posterior red-chi2 of the last draw.
     Launch counters and peak memory are zeroed at each phase boundary.
     Raises unless the bench gates hold and each phase ran its kernels: MAP
-    and SVI K2/K3 and the dft conv both ways, HMC K2/K3 and no dft conv
-    (its exact path convolves with torch.fft). Returns the pipeline and
+    and SVI K2/K3 and the direct dft conv both ways (the phase simulators'
+    route must be "direct"), HMC K2/K3 and no dft conv by either route (its
+    exact path convolves with torch.fft). Returns the pipeline and
     each phase's record (wall, launch counts, peak memory)."""
     import contextlib
 
@@ -727,6 +942,11 @@ def pipeline_phase():
     pipe = bench.run_pipeline(cfg, hmc_seeds=[2], device="cuda", phase_hook=hook)
     total = time.perf_counter() - t0
     r, res = pipe.result, pipe.hmc_res
+    routes = {n: pipe.seq._sim(b)._conv.route for n, b in (("map", cfg["map_n"]),
+                                                           ("svi", cfg["vi_n"]))}
+    print(f"pipeline: K4 routes {json.dumps(routes)}", flush=True)
+    if set(routes.values()) != {"direct"}:
+        raise AssertionError(f"MAP and SVI must take the direct K4 route, got {routes}")
     row = r["seeds"][0]
     for name in ("map", "laplace", "svi", "hmc", "posterior_chi2"):
         print(f"pipeline {name}: {rec[name]['wall']:.3f} s, peak device memory "
@@ -770,12 +990,12 @@ def pipeline_phase():
 def pipeline_kernel_checks(pipe):
     """K2/K3 at the pipeline's SVI shape (n_vi = 1000 draws from the fitted
     surrogate, as the SVI phase draws them) and HMC shape (the 50 chains'
-    last states), and K4 both ways at the SVI shape (the K2 images and a
-    random cotangent), each against its float64 twin with kernel_checks'
-    tolerances, and timed against its float32 twin with CUDA events."""
+    last states), and the direct K4 both ways at the SVI shape (the K2
+    images and a random cotangent), each against its float64 twin with
+    kernel_checks' tolerances, and timed against its float32 twin with CUDA
+    events."""
     import torch
 
-    from gigalens_tpu_torch.ops.cuda import dft_conv as dc
     from gigalens_tpu_torch.ops.cuda import fused_render as fr
 
     dev = torch.device("cuda")
@@ -800,67 +1020,33 @@ def pipeline_kernel_checks(pipe):
         ms = cuda_ms(lambda: fr.fused_render_fwd(params, x, y, niter, save_omega=True))
         pms = cuda_ms(lambda: fr.fused_render_fwd_reference(params, x, y, niter), reps=3,
                       warmup=1)
+        b_ms, b_by = bound(count_ops(lambda: fr.fused_render_fwd_reference(params, x, y, niter)),
+                           [params, x, y, out, ox, oy])
         kernels.append(dict(name=f"fused_render_fwd<true> (K2) at {where}",
                             key="fused_render_fwd_omega", phase=phase, route="cuda",
                             source="gigalens_tpu_torch/csrc/fused_render.cu",
                             replaces="gigalens_tpu/ops/pallas/fused_render.py:246",
-                            max_abs_err=max(e2, e_om), ms=ms, plain_ms=pms))
+                            max_abs_err=max(e2, e_om), ms=ms, plain_ms=pms, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=None))
         print(f"K2 at {where}: max|err| out {e2:.3e} omega {e_om:.3e}  kernel {ms:.3f} ms  "
-              f"twin {pms:.3f} ms", flush=True)
+              f"twin {pms:.3f} ms  bound {b_ms:.3f} ms ({b_by})", flush=True)
 
         ct = torch.randn(out.shape, generator=gen, device=dev)
-        g_k = fr.fused_render_bwd(params, x, y, ox, oy, ct, niter)
-        torch.cuda.synchronize()
-
-        def grad64(p, c):
-            p = p.double().requires_grad_(True)
-            o = fr.fused_render_reference(p, x.double(), y.double(), niter)
-            return torch.autograd.grad((o * c.double()).sum(), p)[0]
-
-        rel3, e3 = check_rel(f"K3 vs f64 autograd of the twin ({where})", g_k,
-                             chunked(grad64, bs, 25, params, ct), GRAD_REL, dim=0)
-        ms = cuda_ms(lambda: fr.fused_render_bwd(params, x, y, ox, oy, ct, niter))
-        pms = cuda_ms(lambda: fr.fused_render_bwd_reference(params, x, y, ox, oy, ct, niter),
-                      reps=3, warmup=1)
-        kernels.append(dict(name=f"fused_render_bwd (K3) at {where}", key="fused_render_bwd",
-                            phase=phase, route="cuda",
-                            source="gigalens_tpu_torch/csrc/fused_render.cu",
-                            replaces="gigalens_tpu/ops/pallas/fused_render.py:299",
-                            max_abs_err=e3, ms=ms, plain_ms=pms))
-        print(f"K3 at {where}: col-rel err vs f64 autograd {rel3:.3e}  kernel {ms:.3f} ms  "
-              f"twin {pms:.3f} ms", flush=True)
+        kernels.append(dict(k3_check(params, x, y, ox, oy, ct, niter, where), phase=phase))
         if phase == "hmc":
             continue
 
         conv = sim._conv
-        if conv is None or conv.mode != "dft":
-            raise AssertionError(f"the SVI simulator should take the dft conv, got {conv}")
+        if conv is None or conv.mode != "dft" or conv.route != "direct":
+            raise AssertionError(f"the SVI simulator should take the direct dft conv, got {conv}")
         h, w = conv.h, conv.w
-        for direction, mats, arg, key in (
-            ("fwd", conv._dft.fwd_mats, out.reshape(bs, h, w).contiguous(), "dft_conv_fwd"),
-            ("transpose", conv._dft.bwd_mats,
-             torch.randn((bs, h // conv.pool, w // conv.pool), generator=gen, device=dev),
-             "dft_conv_transpose"),
-        ):
-            got = dc.dft_conv_cuda(arg, mats, direction)
-            torch.cuda.synchronize()
-            m64 = [m.double() for m in mats]
-            r4, e4 = check_rel(f"K4 {direction} vs f64 einsum twin ({where})", got,
-                               chunked(lambda a: dc.dft_conv_reference(a.double(), m64), bs,
-                                       100, arg), CONV_REL)
-            ms = cuda_ms(lambda: dc.dft_conv_cuda(arg, mats, direction))
-            pms = cuda_ms(lambda: dc.dft_conv_reference(arg, mats))
-            kernels.append(dict(name=f"dft_conv {direction} (K4) at {where}", key=key,
-                                phase=phase, route="cuda",
-                                source="gigalens_tpu_torch/csrc/dft_conv.cu",
-                                replaces="gigalens_tpu/ops/pallas/dft_conv.py:95",
-                                max_abs_err=e4, ms=ms, plain_ms=pms))
-            print(f"K4 {direction} at {where}: rel err vs f64 twin {r4:.3e}  kernel {ms:.3f} ms"
-                  f"  twin {pms:.3f} ms", flush=True)
+        ctc = torch.randn((bs, h // conv.pool, w // conv.pool), generator=gen, device=dev)
+        rows, _ = direct_checks(conv, out.reshape(bs, h, w).contiguous(), ctc, where)
+        kernels += [dict(r, phase=phase) for r in rows]
     return kernels
 
 
-def main():
+def main(argv=()):
     import torch
 
     if not torch.cuda.is_available():
@@ -882,7 +1068,15 @@ def main():
             print(f"  ptxas: {line.strip()}", flush=True)
     _build.load()
 
-    kernels = [dict(k, phase="bench") for k in kernel_checks()] + builder_checks()
+    kernels = [dict(k, phase="bench") for k in kernel_checks()]
+    if "--kernels" in argv:
+        # a development aid: no main path ran, so no launch counts and no ok line
+        print(card)
+        print(json.dumps({"partial": True,
+                          "kernels": [{k: v for k, v in kern.items() if k not in ("key", "phase")}
+                                      for kern in kernels]}))
+        return 0
+    kernels += builder_checks()
     counts = {"bench": main_path(MAP_STEPS), "S": family_path("S", MAP_STEPS),
               "L": family_path("L", MAP_STEPS)}
     pipe, rec = pipeline_phase()
@@ -890,7 +1084,8 @@ def main():
     counts.update(svi=rec["svi"]["counts"], hmc=rec["hmc"]["counts"])
     # launches: each kernel's count in the phase of its row (K1-K4 the bench
     # scene's MAP, K5 and K7 family S's, K6 and K7-components family L's;
-    # the rows at the SVI and HMC shapes the pipeline's SVI and HMC phases)
+    # the rows at the SVI and HMC shapes the pipeline's SVI and HMC phases;
+    # the chain K4, off the main path at the bench shape, 0)
     out = [
         {k: v for k, v in dict(kern, launches=counts[kern["phase"]][kern["key"]]).items()
          if k not in ("key", "phase")}
@@ -905,4 +1100,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

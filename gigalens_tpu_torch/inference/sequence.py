@@ -3,10 +3,11 @@
 
 Each phase builds its own ``LensSimulator`` with the right batch size, like
 the reference: MAP and SVI on the fast path (fused render and, on the card,
-the DFT conv), HMC on the exact path (the FFT conv), the Laplace Hessian on
-the unfused render with the FFT conv. Every phase runs on the sequence's
-device. SMC raises ``NotImplementedError`` naming its ROADMAP item (M16);
-``fit(checkpoint_dir=...)`` names M19.
+the dft-mode conv, K4), HMC on the exact path (the FFT conv), the Laplace
+Hessian on the unfused render with the FFT conv. Every phase runs on the
+sequence's device, which is the CUDA card unless the caller names another
+(``device="cpu"``). SMC raises ``NotImplementedError`` naming its ROADMAP
+item (M16); ``fit(checkpoint_dir=...)`` names M19.
 """
 from __future__ import annotations
 
@@ -20,12 +21,13 @@ from gigalens_tpu_torch.inference.hmc import fit_hmc
 from gigalens_tpu_torch.inference.map import best_start, fit_map, laplace_scale_tril
 from gigalens_tpu_torch.inference.optim import GradientTransformation
 from gigalens_tpu_torch.inference.svi import fit_svi
+from gigalens_tpu_torch.model import resolve_device
 from gigalens_tpu_torch.simulator import LensSimulator
 from gigalens_tpu_torch.utils.summary import summarize_posterior
 
 
 def phase_simulator(cache: dict, sim_config, phys_model, bs: int,
-                    exact: bool = False, device="cpu") -> LensSimulator:
+                    exact: bool = False, device=None) -> LensSimulator:
     """Memoized phase simulator. ``exact=True`` (the HMC/SMC path) pins the
     auto PSF mode to the FFT: the JAX package measured its DFT-by-matmul
     path (single bf16 pass on the TPU) at ~0.3 nats of likelihood noise,
@@ -34,8 +36,9 @@ def phase_simulator(cache: dict, sim_config, phys_model, bs: int,
 
     A memo hit requires the SAME config/model objects (identity, plus the
     model's attribute version), so rebinding either after a phase call never
-    reuses a simulator built from the old configuration."""
-    device = torch.device(device)
+    reuses a simulator built from the old configuration. ``device=None`` is
+    the CUDA card (:func:`~gigalens_tpu_torch.model.resolve_device`)."""
+    device = resolve_device(device)
     key = (bs, exact, str(device), getattr(phys_model, "_version", 0))
     hit = cache.get(key)
     if hit is not None and hit[0] is sim_config and hit[1] is phys_model:
@@ -68,11 +71,11 @@ def _not_ported(what, item):
 
 
 class ModellingSequence:
-    def __init__(self, phys_model, prob_model, sim_config, device="cpu"):
+    def __init__(self, phys_model, prob_model, sim_config, device=None):
         self.phys_model = phys_model
         self.prob_model = prob_model
         self.sim_config = sim_config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._sims = {}
 
     def _sim(self, bs: int, exact: bool = False) -> LensSimulator:

@@ -23,6 +23,16 @@ from gigalens_tpu_torch.prob.prior import Prior
 from gigalens_tpu_torch.profiles.base import LightProfile, MassProfile
 
 
+def resolve_device(device) -> torch.device:
+    """The device of a user entry point. ``None`` means the CUDA card and
+    raises when there is none; the CPU runs only when asked for by name."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError('no CUDA device: pass device="cpu" to run on the CPU')
+        device = "cuda"
+    return torch.device(device)
+
+
 class VersionedAttrs:
     """Bumps ``self._version`` on every attribute rebind, so the phase
     simulator memo (``inference/sequence.py``) never reuses a simulator built
@@ -77,9 +87,9 @@ class ForwardProbModel(VersionedAttrs):
     """Forward-modeled pixel likelihood.
 
     ``observed_image`` and the noise settings are stored as float32 tensors
-    on ``device``. Pass ``error_map`` for a fixed noise map, or
-    ``background_rms`` and ``exp_time`` for the model-based
-    Gaussian+Poisson map.
+    on ``device`` (``None``: the CUDA card, see :func:`resolve_device`).
+    Pass ``error_map`` for a fixed noise map, or ``background_rms`` and
+    ``exp_time`` for the model-based Gaussian+Poisson map.
     """
 
     def __init__(
@@ -92,7 +102,7 @@ class ForwardProbModel(VersionedAttrs):
         centroids_x=None,
         delays=None,
         image_fluxes=None,
-        device="cpu",
+        device=None,
     ):
         if centroids_x is not None or delays is not None or image_fluxes is not None:
             raise NotImplementedError(
@@ -103,7 +113,7 @@ class ForwardProbModel(VersionedAttrs):
             raise ValueError("the port's ForwardProbModel scores pixels: "
                              "pass observed_image")
         self.prior = prior
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
         def f32(v):
             return torch.as_tensor(np.asarray(v, np.float32), device=self.device)
@@ -159,9 +169,9 @@ class BackwardProbModel(VersionedAttrs):
     """Likelihood with observed-image noise and lstsq linear amplitudes
     (pixels only: its position likelihood raises, as in JAX)."""
 
-    def __init__(self, prior: Prior, observed_image, background_rms, exp_time, device="cpu"):
+    def __init__(self, prior: Prior, observed_image, background_rms, exp_time, device=None):
         self.prior = prior
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         obs = torch.as_tensor(np.asarray(observed_image, np.float32), device=self.device)
         err_map = torch.sqrt(float(background_rms) ** 2
                              + torch.clamp(obs, min=0.0) / float(exp_time))

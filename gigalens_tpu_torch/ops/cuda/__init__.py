@@ -3,9 +3,10 @@
 Importing this package builds nothing: ``nvcc`` runs at the first kernel
 launch (:func:`_build.load`).
 """
-from gigalens_tpu_torch.ops.cuda import dft_conv, fused_builder, fused_render
+from gigalens_tpu_torch.ops.cuda import direct_conv, dft_conv, fused_builder, fused_render
 
-_COUNTERS = (fused_render.launches, dft_conv.launches, fused_builder.launches)
+_COUNTERS = (fused_render.launches, dft_conv.launches, direct_conv.launches,
+             fused_builder.launches)
 
 
 def launch_counts() -> dict:
@@ -22,5 +23,5 @@ def reset_launch_counts() -> None:
             counts[k] = 0
 
 
-__all__ = ["dft_conv", "fused_builder", "fused_render", "launch_counts",
+__all__ = ["dft_conv", "direct_conv", "fused_builder", "fused_render", "launch_counts",
            "reset_launch_counts"]

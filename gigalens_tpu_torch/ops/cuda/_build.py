@@ -38,11 +38,15 @@ _I = ctypes.c_int
 SIGNATURES = {
     # params, x, y, out, ox, oy, bs, npix, niter, save_omega, stream
     "gl_fused_render_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # params, x, y, ox, oy, ct, partial, bs, npix, niter, stream
-    "gl_fused_render_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # params, x, y, ox, oy, ct, partial, grad, bs, npix, niter, stream
+    "gl_fused_render_bwd": [_P] * 8 + [_I] * 3 + [_P],
     # x, out, t1 (re, im), z (re, im), u (re, im), 10 factors,
     # bs, H, W, fh, fw, oh, ow, stream
     "gl_dft_conv": [_P] * 18 + [_I] * 7 + [_P],
+    # x (or ct), out, w, phase table, bs, H, W, pool, KH, KW, warps, HH, PW,
+    # LDp, smem, stream (H, W: the image's size in both directions)
+    "gl_direct_conv_fwd": [_P] * 4 + [_I] * 11 + [_P],
+    "gl_direct_conv_transpose": [_P] * 4 + [_I] * 11 + [_P],
     # params, x, y, extras, out, records, n_mass, n_light, prefactors,
     # bs, npix, n_cols, summed, stream
     "gl_fused_builder_fwd": [_P] * 6 + [_I, _I, _P] + [_I] * 4 + [_P],
@@ -140,13 +144,13 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
-def check_arg(t, name: str, shape, device) -> None:
+def check_arg(t, name: str, shape, device, dtype=torch.float32) -> None:
     """Validates a kernel argument before its pointer is passed: a
-    contiguous float32 tensor of ``shape`` on the CUDA ``device``."""
+    contiguous ``dtype`` tensor of ``shape`` on the CUDA ``device``."""
     if t.device.type != "cuda" or t.device != device:
         raise ValueError(f"{name} must be a CUDA tensor on {device}, got {t.device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():

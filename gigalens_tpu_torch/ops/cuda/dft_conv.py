@@ -103,7 +103,7 @@ class DFTConv:
     """
 
     def __init__(self, fh_re, fh_im, fw_re, fw_im, k_re, k_im,
-                 ih_re, ih_im, iw_re, iw_im, device="cpu"):
+                 ih_re, ih_im, iw_re, iw_im, *, device):
         def t(a):
             return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=device)
 

@@ -15,13 +15,17 @@ writing only the final surface brightness. Three kernels
 * K3 ``fused_render_bwd``: the (bs, 22) parameter gradient from Omega and
   the output cotangent, with no forward series loop: the hand-derived VJP
   of the closed-form output map, one O(1)-memory series backward loop, and
-  the VJP of the geometry. Each block writes (bs, n_tiles, 22) partial sums;
-  a second, deterministic pass sums the tiles (as the JAX side does).
+  the VJP of the geometry, in two stages. The pixel stage, from per-sample
+  constants and a per-sample series table computed once per block, reduces
+  the cotangents of N_SUMS per-sample quantities into (bs, n_chunks,
+  N_SUMS) partials; an epilogue kernel sums them in a fixed order and maps
+  them, once per sample, to the 22 gradients (the map is linear).
 
 Beside them, the plain PyTorch twins: :func:`fused_render_reference` (the
 forward chain, differentiable by torch autograd through the EPL series
 ``autograd.Function``) and :func:`fused_render_bwd_reference` (the
-hand-derived VJP, line for line with the CUDA device code). The wrappers
+hand-derived VJP in K3's two stages, :func:`bwd_pixel_terms` and
+:func:`bwd_epilogue`, line for line with the CUDA device code). The wrappers
 take the twins for CPU tensors only; for CUDA tensors they launch the
 kernels or raise.
 
@@ -37,10 +41,11 @@ import torch
 
 from gigalens_tpu_torch.ops.cuda import _build
 from gigalens_tpu_torch.ops.cuda._math import half_angle, half_angle_bwd, powp
-from gigalens_tpu_torch.profiles.mass.epl import _omega_cs_bwd, _omega_cs_impl, omega_cs
+from gigalens_tpu_torch.profiles.mass.epl import _omega_cs_impl, omega_cs
 
 N_PARAMS = 22
 TILE = 256  # pixels per block of the CUDA kernels (one thread each)
+TILES_PER_BLOCK = 4  # pixel tiles one K3 block walks
 
 # Launch counts of the three kernels; each wrapper adds one where it
 # launches its kernel and nowhere else.
@@ -182,94 +187,203 @@ def _sersic_bwd(g, x, y, R_s, n_s, e1, e2, cx, cy, Ie):
     return g_dx, g_dy, [g_rs, g_n, g_e1, g_e2, -g_dx, -g_dy, g_ie]
 
 
-def fused_render_bwd_reference(params, x, y, ox, oy, ct, niter: int):
-    """Plain twin of K3: the hand-derived VJP -> (bs, 22) parameter gradient.
+# K3's two stages. The pixel stage reduces, per sample, the cotangents of
+# N_SUMS per-sample quantities (columns of the sums):
+#   0-6   EPL: b, t, q, cos phi, sin phi, dx, dy (dx = x - center_x, ...)
+#   7-8   shear: gamma1, gamma2
+#   9-16  lens light Sersic: R_sersic, n_sersic, Ie, cos phi, sin phi, q, dx, dy
+#   17-24 source Sersic: the same
+# and the epilogue maps those sums, once per sample, to the 22 parameter
+# gradients (the map is linear in them: the half-angle VJP, the axis-ratio
+# chains, theta_E = b / sqrt(q), the center signs).
+N_SUMS = 25
+MAX_NITER = 64  # rows of K3's per-sample series table
 
-    Written line for line with ``fused_render_bwd`` in
-    ``csrc/fused_render.cu``: the VJP of the output map (light, shear,
-    prefactor) and the VJP of the series geometry share one tail from the
-    ellipse-frame quantities (q, xr, yr, R, cos phi, sin phi) to the
-    parameters.
-    """
-    c = _cols(params)
-    te, gam, e1, e2, cx, cy, g1, g2 = c[:8]
-    cp, sp = half_angle(e1, e2)
+
+def _epl_q(e1, e2):
     m = torch.sqrt(e1**2 + e2**2 + 1e-24)
     cc = torch.clamp(m, max=1.0)
-    q = (1.0 - cc) / (1.0 + cc)
+    return m, cc, (1.0 - cc) / (1.0 + cc)
+
+
+def _epl_consts(p):
+    """Per-sample constants of the EPL + shear pixel stage, each (bs, 1)."""
+    c = _cols(p)
+    cp, sp = half_angle(c[2], c[3])
+    _, _, q = _epl_q(c[2], c[3])
+    b = c[0] * torch.sqrt(q)
+    i1q2 = 1.0 / ((1.0 + q) * (1.0 + q))
+    return dict(cp=cp, sp=sp, q=q, b=b, t=c[1] - 1.0, p0=2.0 * b / (1.0 + q), ib=1.0 / b,
+                two_i1q=2.0 / (1.0 + q), c_qb=2.0 * b * i1q2, c_qf=-2.0 * i1q2,
+                g1=c[6], g2=c[7], cx=c[4], cy=c[5])
+
+
+def _series_table(p, niter: int):
+    """(ratio, n / f, s_t, 2n + 1) for n = 1 .. niter - 1, each (bs, niter - 1):
+    the terms of the series backward that depend on the sample alone."""
+    c = _cols(p)
+    _, _, q = _epl_q(c[2], c[3])
+    f = torch.clamp((1.0 - q) / (1.0 + q), min=1e-20)
+    t = c[1] - 1.0
+    n = torch.arange(1, niter, dtype=p.dtype, device=p.device)
+    ratio = -f * (2.0 * n - (2.0 - t)) / (2.0 * n + (2.0 - t))
+    s_t = torch.cumsum(1.0 / (2.0 * n - 2.0 + t) + 1.0 / (2.0 * n + 2.0 - t), dim=-1)
+    return ratio, n / f, s_t, torch.broadcast_to(2.0 * n + 1.0, ratio.shape)
+
+
+def _sersic_consts(R_s, n_s, e1, e2, cx, cy, Ie):
+    cp, sp = half_angle(e1, e2)
+    c = torch.sqrt(e1**2 + e2**2 + 1e-24)
+    q = (1.0 - c) / (1.0 + c)
     sq = torch.sqrt(q)
-    b = te * sq
-    t = gam - 1.0
-    dx, dy = x - cx, y - cy
-    xr = dx * cp + dy * sp
-    yr = -dx * sp + dy * cp
-    qx = q * xr
+    isq = 1.0 / sq
+    k = 1.0 / n_s
+    return dict(cp=cp, sp=sp, sq=sq, isq=isq, half_isq=0.5 * isq, bn=1.9992 * n_s - 0.3271,
+                k=k, kk=k * k, kRs=k * R_s, iRs=1.0 / R_s, Ie=Ie, cx=cx, cy=cy)
+
+
+def _sersic_pixel(g, x, y, k):
+    """Pixel stage of one Sersic: (g_x, g_y, its 8 cotangent terms)."""
+    dx, dy = x - k["cx"], y - k["cy"]
+    a = k["cp"] * dx + k["sp"] * dy
+    bb = -k["sp"] * dx + k["cp"] * dy
+    xt1, xt2 = a * k["sq"], bb * k["isq"]
+    R = torch.sqrt(xt1**2 + xt2**2)
+    iR = 1.0 / R
+    u = R * k["iRs"]
+    lu = torch.log(u)
+    w = torch.exp(k["k"] * lu)
+    E = torch.exp(-k["bn"] * (w - 1.0))
+    g_s = g * k["Ie"] * E  # cotangent of the exponent -bn (w - 1)
+    g_w = -g_s * k["bn"]
+    g_bn = -g_s * (w - 1.0)
+    g_kl = g_w * w  # cotangent of k * log(u)
+    g_k = g_kl * lu
+    g_u = g_kl * k["kRs"] * iR  # k / u = k R_s / R
+    g_r = g_u * k["iRs"]
+    g_xt1, g_xt2 = g_r * xt1 * iR, g_r * xt2 * iR
+    g_a, g_b = g_xt1 * k["sq"], g_xt2 * k["isq"]
+    g_x = g_a * k["cp"] - g_b * k["sp"]
+    g_y = g_a * k["sp"] + g_b * k["cp"]
+    terms = [-g_u * u * k["iRs"], 1.9992 * g_bn - g_k * k["kk"], g * E,
+             g_a * dx + g_b * dy, g_a * dy - g_b * dx,
+             (g_xt1 * a - g_xt2 * xt2 * k["isq"]) * k["half_isq"], g_x, g_y]
+    return g_x, g_y, terms
+
+
+def bwd_pixel_terms(params, x, y, ox, oy, ct, niter: int):
+    """K3's pixel stage: the N_SUMS cotangent terms, each (bs, P), whose
+    sums over the pixels :func:`bwd_epilogue` takes. Written line for line
+    with ``fused_render_bwd`` in ``csrc/fused_render.cu``: every quantity of
+    the sample alone (rotations, axis ratios, the series ratios and partial
+    sums) comes from the per-sample constants."""
+    e = _epl_consts(params)
+    ll = _sersic_consts(*_cols(params)[8:15])
+    src = _sersic_consts(*_cols(params)[15:22])
+    ratio, nf, s_t, c2n1 = _series_table(params, niter)
+
+    dx, dy = x - e["cx"], y - e["cy"]
+    xr = dx * e["cp"] + dy * e["sp"]
+    yr = -dx * e["sp"] + dy * e["cp"]
+    qx = e["q"] * xr
     rr = torch.sqrt(qx * qx + yr * yr)
     R = torch.clamp(rr, 1e-10, 1e10)
-    p0 = 2.0 * b / (1.0 + q)
-    lbr = torch.log(b / R)
-    w = torch.exp((t - 1.0) * lbr)
-    pref = p0 * w
+    iR = 1.0 / R
+    lbr = torch.log(e["b"] * iR)
+    w = torch.exp((e["t"] - 1.0) * lbr)
+    pref = e["p0"] * w
     axr, ayr = pref * ox, pref * oy
-    ax = axr * cp - ayr * sp + g1 * x + g2 * y
-    ay = axr * sp + ayr * cp + g2 * x - g1 * y
+    ax = axr * e["cp"] - ayr * e["sp"] + e["g1"] * x + e["g2"] * y
+    ay = axr * e["sp"] + ayr * e["cp"] + e["g2"] * x - e["g1"] * y
 
     # light: lens light at x, source at beta = x - alpha
-    _, _, g_ll = _sersic_bwd(ct, x, y, *c[8:15])
-    g_bx, g_by, g_src = _sersic_bwd(ct, x - ax, y - ay, *c[15:22])
+    _, _, t_ll = _sersic_pixel(ct, x, y, ll)
+    g_bx, g_by, t_src = _sersic_pixel(ct, x - ax, y - ay, src)
 
     # shear and the rotation back from the ellipse frame
     g_ax, g_ay = -g_bx, -g_by
     g_g1 = g_ax * x - g_ay * y
     g_g2 = g_ax * y + g_ay * x
-    g_axr = g_ax * cp + g_ay * sp
-    g_ayr = -g_ax * sp + g_ay * cp
+    g_axr = g_ax * e["cp"] + g_ay * e["sp"]
+    g_ayr = -g_ax * e["sp"] + g_ay * e["cp"]
     g_cp = g_ax * axr + g_ay * ayr
     g_sp = -g_ax * ayr + g_ay * axr
     # prefactor (2 b / (1 + q)) (b / R)^(t - 1)
     g_pref = g_axr * ox + g_ayr * oy
     g_ox, g_oy = g_axr * pref, g_ayr * pref
-    g_arg = g_pref * p0 * w  # cotangent of (t - 1) log(b / R)
+    g_arg = g_pref * pref  # cotangent of (t - 1) log(b / R)
     g_t = g_arg * lbr
-    g_lbr = g_arg * (t - 1.0)
-    g_b = g_lbr / b + g_pref * w * 2.0 / (1.0 + q)
-    g_R = -g_lbr / R
-    g_q = -g_pref * w * 2.0 * b / ((1.0 + q) * (1.0 + q))
+    g_lbr = g_arg * (e["t"] - 1.0)
+    g_b = g_lbr * e["ib"] + g_pref * w * e["two_i1q"]
+    g_R = -g_lbr * iR
+    g_q = -g_pref * w * e["c_qb"]
 
-    # series backward: Omega cotangents -> (cos_t, sin_t, f, t) cotangents
-    cos_t, sin_t = qx / R, yr / R
-    f = (1.0 - q) / (1.0 + q)
-    g_c, g_s, g_f, g_tt = _omega_cs_bwd(niter, cos_t, sin_t, f, t, g_ox, g_oy)
+    # series backward with the per-sample table: Omega cotangents ->
+    # (cos_t, sin_t, f, t) cotangents
+    cos_t, sin_t = qx * iR, yr * iR
+    cos_2t = cos_t * cos_t - sin_t * sin_t
+    sin_2t = 2.0 * cos_t * sin_t
+    a_x, a_y = cos_t, sin_t
+    g_th = -g_ox * sin_t + g_oy * cos_t
+    g_rho = g_ox * cos_t + g_oy * sin_t
+    g_f = g_tt = 0.0
+    for n in range(niter - 1):
+        r_n = ratio[:, n:n + 1]
+        a_x, a_y = r_n * (cos_2t * a_x - sin_2t * a_y), r_n * (sin_2t * a_x + cos_2t * a_y)
+        dot = g_ox * a_x + g_oy * a_y
+        g_th = g_th + c2n1[:, n:n + 1] * (-g_ox * a_y + g_oy * a_x)
+        g_rho = g_rho + c2n1[:, n:n + 1] * dot
+        g_f = g_f + nf[:, n:n + 1] * dot
+        g_tt = g_tt + s_t[:, n:n + 1] * dot
+    g_c = cos_t * g_rho - sin_t * g_th
+    g_s = sin_t * g_rho + cos_t * g_th
     g_t = g_t + g_tt
-    g_q = g_q - 2.0 * g_f / ((1.0 + q) * (1.0 + q))
-    g_q = g_q + g_c * xr / R
-    g_xr = g_c * q / R
-    g_yr = g_s / R
-    g_R = g_R - (g_c * cos_t + g_s * sin_t) / R
+    g_q = g_q + g_f * e["c_qf"]
+    g_q = g_q + g_c * xr * iR
+    g_xr = g_c * e["q"] * iR
+    g_yr = g_s * iR
+    g_R = g_R - (g_c * cos_t + g_s * sin_t) * iR
 
-    # shared tail: R -> (q, xr, yr) -> (dx, dy, cos phi, sin phi) -> params
+    # R -> (q, xr, yr) -> (dx, dy, cos phi, sin phi); R = rr where it is not clipped
     g_rr = torch.where((rr > 1e-10) & (rr < 1e10), g_R, torch.zeros_like(g_R))
-    g_qx = g_rr * qx / rr
-    g_yr = g_yr + g_rr * yr / rr
+    g_qx = g_rr * qx * iR
+    g_yr = g_yr + g_rr * yr * iR
     g_q = g_q + g_qx * xr
-    g_xr = g_xr + g_qx * q
-    g_te = g_b * sq
-    g_q = g_q + g_b * te * 0.5 / sq
-    g_dx = g_xr * cp - g_yr * sp
-    g_dy = g_xr * sp + g_yr * cp
-    g_cp = g_cp + g_xr * dx + g_yr * dy
-    g_sp = g_sp + g_xr * dy - g_yr * dx
+    g_xr = g_xr + g_qx * e["q"]
+    epl = [g_b, g_t, g_q, g_cp + g_xr * dx + g_yr * dy, g_sp + g_xr * dy - g_yr * dx,
+           g_xr * e["cp"] - g_yr * e["sp"], g_xr * e["sp"] + g_yr * e["cp"]]
+    return epl + [g_g1, g_g2] + t_ll + t_src
+
+
+def bwd_epilogue(params, sums):
+    """K3's epilogue: (bs, N_SUMS) sums of the pixel terms -> (bs, 22)."""
+    c = _cols(params)
+    g = [sums[:, k:k + 1] for k in range(N_SUMS)]
+    te, e1, e2 = c[0], c[2], c[3]
+    m, cc, q = _epl_q(e1, e2)
+    sq = torch.sqrt(q)
+    g_q = g[2] + g[0] * te * 0.5 / sq
     g_cc = -2.0 * g_q / ((1.0 + cc) * (1.0 + cc))
     g_m = torch.where(m < 1.0, g_cc, torch.zeros_like(g_cc))
-    g_e1, g_e2 = half_angle_bwd(e1, e2, g_cp, g_sp)
-    g_e1 = g_e1 + g_m * e1 / m
-    g_e2 = g_e2 + g_m * e2 / m
+    g_e1, g_e2 = half_angle_bwd(e1, e2, g[3], g[4])
+    out = [g[0] * sq, g[1], g_e1 + g_m * e1 / m, g_e2 + g_m * e2 / m, -g[5], -g[6], g[7], g[8]]
+    for base, off in ((8, 9), (15, 17)):
+        s_e1, s_e2 = c[base + 2], c[base + 3]
+        gs = g[off:off + 8]
+        cs = torch.sqrt(s_e1**2 + s_e2**2 + 1e-24)
+        g_c = -2.0 * gs[5] / ((1.0 + cs) * (1.0 + cs))
+        h1, h2 = half_angle_bwd(s_e1, s_e2, gs[3], gs[4])
+        out += [gs[0], gs[1], h1 + g_c * s_e1 / cs, h2 + g_c * s_e2 / cs, -gs[6], -gs[7], gs[2]]
+    return torch.cat(out, dim=-1)
 
-    cols = [g_te, g_t, g_e1, g_e2, -g_dx, -g_dy, g_g1, g_g2, *g_ll, *g_src]
-    bs = params.shape[0]
-    return torch.stack(
-        [torch.broadcast_to(g, ct.shape).sum(dim=-1) for g in cols], dim=-1
-    ).reshape(bs, N_PARAMS)
+
+def fused_render_bwd_reference(params, x, y, ox, oy, ct, niter: int):
+    """Plain twin of K3: the hand-derived VJP -> (bs, 22) parameter gradient,
+    in K3's two stages (:func:`bwd_pixel_terms`, then :func:`bwd_epilogue`
+    on their sums over the pixels)."""
+    terms = bwd_pixel_terms(params, x, y, ox, oy, ct, niter)
+    sums = torch.stack([torch.broadcast_to(t, ct.shape).sum(dim=-1) for t in terms], dim=-1)
+    return bwd_epilogue(params, sums)
 
 
 # ---------------------------------------------------------------------------
@@ -315,22 +429,23 @@ def fused_render_bwd(params, x, y, ox, oy, ct, niter: int):
     """K3: (bs, 22) parameter gradient. CPU tensors take the plain twin."""
     if params.device.type == "cpu":
         return fused_render_bwd_reference(params, x, y, ox, oy, ct, niter)
+    if not 1 <= niter <= MAX_NITER:
+        raise ValueError(f"niter={niter} is outside K3's series table (1..{MAX_NITER})")
     bs, npix = _check_inputs(params, x, y)
     for t, name in ((ox, "ox"), (oy, "oy"), (ct, "ct")):
         _build.check_arg(t, name, (bs, npix), params.device)
-    n_tiles = -(-npix // TILE)
-    partial = torch.empty((bs, n_tiles, N_PARAMS), dtype=torch.float32,
-                          device=params.device)
+    n_chunks = -(-npix // (TILE * TILES_PER_BLOCK))
+    partial = torch.empty((bs, n_chunks, N_SUMS), dtype=torch.float32, device=params.device)
+    grad = torch.empty((bs, N_PARAMS), dtype=torch.float32, device=params.device)
     lib, ptr = _build.load(), _build.ptr
     with torch.cuda.device(params.device):
         err = lib.gl_fused_render_bwd(
-            ptr(params), ptr(x), ptr(y), ptr(ox), ptr(oy), ptr(ct),
-            ptr(partial), bs, npix, int(niter), _build.stream(params.device),
+            ptr(params), ptr(x), ptr(y), ptr(ox), ptr(oy), ptr(ct), ptr(partial),
+            ptr(grad), bs, npix, int(niter), _build.stream(params.device),
         )
     _build.check(err, "fused_render_bwd")
     launches["fused_render_bwd"] += 1
-    # second, deterministic pass over the small (bs, n_tiles, 22) partials
-    return partial.sum(dim=1)
+    return grad
 
 
 class _FusedRender(torch.autograd.Function):

@@ -4,10 +4,14 @@ Port of :mod:`gigalens_tpu.ops.psf`. :func:`subgrid_kernel` and the DFT
 factor construction are numpy, copied as they are. :class:`PSFConv`
 convolves a (..., H, W) batch with a fixed kernel in one of two modes:
 
-* ``"dft"``: dense DFT-by-matmul with the 'SAME' crop and an optional
-  average pool folded into the inverse factors. On CUDA it runs the
-  hand-written kernel (``ops/cuda/dft_conv.py``, K4); on the CPU its plain
-  twin, the JAX package's ``_dft_conv`` einsum chain.
+* ``"dft"``: the 'SAME' convolution with an optional average pool folded
+  in, the JAX package's dense DFT-by-matmul path. On CUDA it takes one of
+  two hand-written kernels (K4), chosen at construction by a shape rule
+  (:func:`~gigalens_tpu_torch.ops.cuda.direct_conv.k4_route`, kept as
+  ``PSFConv.route``): ``"direct"``, a strided sum over the pooled kernel
+  (``ops/cuda/direct_conv.py``), or ``"chain"``, the DFT factor chain
+  (``ops/cuda/dft_conv.py``) for PSFs too large for it. On the CPU it runs
+  the chain's plain twin, the JAX package's ``_dft_conv`` einsum chain.
 * ``"fft"``: zero-padded linear convolution by ``torch.fft.rfft2`` /
   ``irfft2`` with the kernel spectrum precomputed (the HMC/SMC "exact" path).
 
@@ -21,6 +25,7 @@ import numpy as np
 import torch
 
 from gigalens_tpu_torch.ops.cuda.dft_conv import DFTConv
+from gigalens_tpu_torch.ops.cuda.direct_conv import DirectConv, k4_route
 
 
 # --------------------------------------------------------------------------
@@ -119,6 +124,47 @@ def _good_fft_size(n: int) -> int:
     return best
 
 
+def dft_factors(kernel: np.ndarray, img_shape, pool: int = 1):
+    """The DFT chain's ten float32 factors for ``kernel`` on ``img_shape``
+    images, in :class:`DFTConv`'s argument order: Fh, Fw (re, im), the
+    kernel spectrum K (re, im), and the inverses Ih, Iw (re, im).
+
+    The factors do no wasted work: the forward matrices are rectangular
+    (fh, H) / (fw, W) slices (the zero padding contributes nothing), and the
+    inverse matrices fold in the 'SAME' crop and, when pool > 1, the
+    average pool.
+    """
+    kernel = np.asarray(kernel, np.float32)
+    kh, kw = kernel.shape
+    h, w = int(img_shape[0]), int(img_shape[1])
+    fh, fw = _good_fft_size(h + kh - 1), _good_fft_size(w + kw - 1)
+    kpad = np.zeros((fh, fw), np.float64)
+    kpad[:kh, :kw] = kernel
+    kfft = np.fft.fft2(kpad)
+
+    def dft(n):
+        return np.exp(-2j * np.pi * np.outer(np.arange(n), np.arange(n)) / n)
+
+    def fold(inv, off, size):
+        """Crop rows [off, off+size) and mean-pool blocks of pool."""
+        sel = inv[off : off + size]
+        if pool == 1:
+            return sel
+        return sel.reshape(size // pool, pool, -1).mean(axis=1)
+
+    Fh, Fw = dft(fh), dft(fw)
+    oy, ox = kh // 2, kw // 2
+    f32 = np.float32
+    return (
+        Fh.real[:, :h].astype(f32).copy(), Fh.imag[:, :h].astype(f32).copy(),
+        Fw.real[:, :w].astype(f32).copy(), Fw.imag[:, :w].astype(f32).copy(),
+        kfft.real.astype(f32), kfft.imag.astype(f32),
+        # inverse DFT = conj(F)/n, with crop (+pool) folded in
+        fold(Fh.real / fh, oy, h).astype(f32), fold(-Fh.imag / fh, oy, h).astype(f32),
+        fold(Fw.real / fw, ox, w).astype(f32), fold(-Fw.imag / fw, ox, w).astype(f32),
+    )
+
+
 # --------------------------------------------------------------------------
 # Device-side convolution
 # --------------------------------------------------------------------------
@@ -130,11 +176,11 @@ class PSFConv:
     (kernel flipped), matching the reference's ``lax.conv``; ``pool`` > 1
     (dft mode only) folds the trailing average pool into the inverse
     transform, so the conv emits (H/pool, W/pool) directly. Constants live
-    on ``device``.
+    on ``device``, which the caller names (no default).
     """
 
     def __init__(self, kernel: np.ndarray, img_shape, mode: str = "fft",
-                 pool: int = 1, device="cpu"):
+                 pool: int = 1, *, device):
         self.kernel = np.asarray(kernel, np.float32)
         if self.kernel.ndim != 2:
             raise NotImplementedError(
@@ -149,54 +195,31 @@ class PSFConv:
         self.mode = mode
         self.device = torch.device(device)
         self.pool = int(pool) if mode == "dft" else 1
+        self.route = None  # "direct" or "chain" in dft mode
         fh = _good_fft_size(self.h + self.kh - 1)
         fw = _good_fft_size(self.w + self.kw - 1)
         self.fshape = (fh, fw)
-        kpad = np.zeros((fh, fw), np.float64)
-        kpad[: self.kh, : self.kw] = self.kernel
 
         if mode == "dft":
-            # The factors do no wasted work: the forward matrices are
-            # rectangular (fh, H) / (fw, W) slices (the zero padding
-            # contributes nothing), and the inverse matrices fold in the
-            # 'SAME' crop and, when pool > 1, the average pool.
-            kfft = np.fft.fft2(kpad)
-            self._k_re = kfft.real.astype(np.float32)
-            self._k_im = kfft.imag.astype(np.float32)
-
-            def dft(n):
-                return np.exp(-2j * np.pi * np.outer(np.arange(n), np.arange(n)) / n)
-
-            oy, ox = self.kh // 2, self.kw // 2
             p = self.pool
             if p > 1 and (self.h % p or self.w % p):
                 raise ValueError("pool must divide the image shape")
-
-            def fold(inv, off, size):
-                """Crop rows [off, off+size) and mean-pool blocks of p."""
-                sel = inv[off : off + size]
-                if p == 1:
-                    return sel
-                return sel.reshape(size // p, p, -1).mean(axis=1)
-
-            Fh = dft(fh)
-            Fw = dft(fw)
-            self._fh_re = Fh.real[:, : self.h].astype(np.float32).copy()
-            self._fh_im = Fh.imag[:, : self.h].astype(np.float32).copy()
-            self._fw_re = Fw.real[:, : self.w].astype(np.float32).copy()
-            self._fw_im = Fw.imag[:, : self.w].astype(np.float32).copy()
-            # inverse DFT = conj(F)/n, with crop (+pool) folded in
-            self._ih_re = fold(Fh.real / fh, oy, self.h).astype(np.float32)
-            self._ih_im = fold(-Fh.imag / fh, oy, self.h).astype(np.float32)
-            self._iw_re = fold(Fw.real / fw, ox, self.w).astype(np.float32)
-            self._iw_im = fold(-Fw.imag / fw, ox, self.w).astype(np.float32)
             self.out_h, self.out_w = self.h // p, self.w // p
-            self._dft = DFTConv(
-                self._fh_re, self._fh_im, self._fw_re, self._fw_im,
-                self._k_re, self._k_im, self._ih_re, self._ih_im,
-                self._iw_re, self._iw_im, device=self.device,
-            )
+            # the CPU runs the chain's einsum twin: parity with the JAX package
+            self.route = "chain"
+            if self.device.type == "cuda":
+                self.route = k4_route(self.kh, self.kw, p)
+            self._dft = self._direct = None
+            if self.route == "direct":
+                self._direct = DirectConv(self.kernel, (self.h, self.w), p, self.device)
+            else:
+                factors = dft_factors(self.kernel, (self.h, self.w), p)
+                (self._fh_re, self._fh_im, self._fw_re, self._fw_im, self._k_re, self._k_im,
+                 self._ih_re, self._ih_im, self._iw_re, self._iw_im) = factors
+                self._dft = DFTConv(*factors, device=self.device)
         else:
+            kpad = np.zeros((fh, fw), np.float64)
+            kpad[: self.kh, : self.kw] = self.kernel
             kfft = np.fft.rfft2(kpad)
             # complex64 spectrum for float32 inputs (the JAX package's), the
             # unrounded complex128 one for float64 inputs
@@ -218,7 +241,10 @@ class PSFConv:
         """img: (..., H, W) -> convolved (..., out_h, out_w)."""
         batch_shape = img.shape[:-2]
         x = img.reshape(-1, self.h, self.w)
-        out = self._dft(x) if self.mode == "dft" else self._fft_conv(x)
+        if self.mode == "fft":
+            out = self._fft_conv(x)
+        else:
+            out = self._direct(x) if self.route == "direct" else self._dft(x)
         return out.reshape(*batch_shape, self.out_h, self.out_w)
 
 

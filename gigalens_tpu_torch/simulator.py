@@ -42,19 +42,19 @@ def _batched(p: Dict):
 
 class LensSimulator(gmodel.VersionedAttrs):
     """Batched differentiable lens simulator for a fixed camera, batch size
-    and device."""
+    and device (``None``: the CUDA card; ``"cpu"`` must be asked for)."""
 
     def __init__(
         self,
         phys_model: "gmodel.PhysicalModel",
         sim_config: SimulatorConfig,
         bs: int,
-        device="cpu",
+        device=None,
     ):
         self.phys_model = phys_model
         self.sim_config = sim_config
         self.bs = int(bs)
-        self.device = torch.device(device)
+        self.device = gmodel.resolve_device(device)
         self.supersample = int(sim_config.supersample)
         self.wcs = LensWCS(
             n=sim_config.num_pix,

@@ -42,7 +42,8 @@ def setup():
     ct = rng.standard_normal((5, 20, 20)).astype(np.float32)
     out_j, vjp = jax.vjp(pal, jnp.asarray(x))
     (xbar_j,) = vjp(jnp.asarray(ct))
-    return dict(kern=kern, jconv=jconv, conv=PSFConv(kern, (40, 40), mode="dft", pool=2),
+    return dict(kern=kern, jconv=jconv, conv=PSFConv(kern, (40, 40), mode="dft", pool=2,
+                                                     device="cpu"),
                 x=x, ct=ct, out_j=np.asarray(out_j), xbar_j=np.asarray(xbar_j))
 
 
@@ -63,7 +64,7 @@ def test_subgrid_kernel_identical_and_bench_fshape():
     assert sk.shape == (51, 51)
     # the bench scene's fallback PSF on 160x160 supersampled images: the
     # DFT spectrum is 216x216 (5-smooth size of 160 + 51 - 1 = 210)
-    assert PSFConv(sk, (160, 160), mode="fft").fshape == (216, 216)
+    assert PSFConv(sk, (160, 160), mode="fft", device="cpu").fshape == (216, 216)
 
 
 def test_dft_forward_matches_pallas_interpret_and_fft(setup):
@@ -90,7 +91,7 @@ def test_dft_transpose_matches_pallas_vjp(setup):
 
 def test_fft_mode_and_average_pool_match_jax(setup):
     jfft = JPSFConv(setup["kern"], (40, 40), mode="fft")
-    conv = PSFConv(setup["kern"], (40, 40), mode="fft")
+    conv = PSFConv(setup["kern"], (40, 40), mode="fft", device="cpu")
     x = setup["x"]
     out = conv(torch.tensor(x))
     _close(out.numpy(), jfft(jnp.asarray(x)))
@@ -101,6 +102,6 @@ def test_fft_mode_and_average_pool_match_jax(setup):
 
 def test_unported_modes_raise(setup):
     with pytest.raises(NotImplementedError):
-        PSFConv(setup["kern"], (40, 40), mode="direct")
+        PSFConv(setup["kern"], (40, 40), mode="direct", device="cpu")
     with pytest.raises(NotImplementedError):
-        PSFConv(np.stack([setup["kern"]] * 2), (40, 40), mode="fft")
+        PSFConv(np.stack([setup["kern"]] * 2), (40, 40), mode="fft", device="cpu")

@@ -294,9 +294,9 @@ def test_one_step_matches_jax(G, t, mode):
 @pytest.fixture(scope="module")
 def lens_seq(demo_prior, demo_physmodel, small_sim_config):
     prob = ForwardProbModel(prior_from_reference(demo_prior), np.zeros((20, 20), np.float32),
-                            background_rms=0.1, exp_time=100)
+                            background_rms=0.1, exp_time=100, device="cpu")
     return ModellingSequence(phys_model_from_reference(demo_physmodel), prob,
-                             sim_config_from_reference(small_sim_config))
+                             sim_config_from_reference(small_sim_config), device="cpu")
 
 
 def test_hmc_from_jax_surrogate(lens_seq, demo_prior):

@@ -54,7 +54,7 @@ def scene(demo_prior, demo_physmodel, small_sim_config):
            ).astype(np.float32)
     jprob = JForwardProbModel(demo_prior, obs, background_rms=0.2, exp_time=100.0)
     tprob = ForwardProbModel(prior_from_reference(demo_prior), obs, background_rms=0.2,
-                             exp_time=100.0)
+                             exp_time=100.0, device="cpu")
     return dict(jcfg=jcfg, tcfg=sim_config_from_reference(jcfg), jphys=demo_physmodel,
                 tphys=phys_model_from_reference(demo_physmodel), jprob=jprob, tprob=tprob,
                 z=z_truth, d=demo_prior.d, prior=demo_prior)
@@ -86,7 +86,8 @@ def test_laplace_scale_tril_matches_jax(scene, method):
     want = np.asarray(j_laplace_scale_tril(
         scene["jprob"], JLensSimulator(scene["jphys"], scene["jcfg"], bs=bs),
         jnp.asarray(scene["z"]), method=method))
-    got = laplace_scale_tril(scene["tprob"], LensSimulator(scene["tphys"], scene["tcfg"], bs=bs),
+    got = laplace_scale_tril(scene["tprob"], LensSimulator(scene["tphys"], scene["tcfg"], bs=bs,
+                                                           device="cpu"),
                              scene["z"], method=method).numpy()
     assert got.shape == (d, d) and np.isfinite(got).all()
     assert _frob(got, want) < LAPLACE_FROB[method], _frob(got, want)
@@ -95,13 +96,14 @@ def test_laplace_scale_tril_matches_jax(scene, method):
 def test_sequence_laplace_fd_is_close_to_exact(scene):
     """The sequence pins the unfused render and the FFT conv; FD and exact
     agree closely (the JAX package measured ~5% on its bench scene)."""
-    seq = ModellingSequence(scene["tphys"], scene["tprob"], scene["tcfg"])
+    seq = ModellingSequence(scene["tphys"], scene["tprob"], scene["tcfg"], device="cpu")
     fd = seq.laplace_scale_tril(scene["z"], method="fd")
     exact = seq.laplace_scale_tril(scene["z"], method="exact")
     assert isinstance(fd, np.ndarray) and fd.shape == (scene["d"],) * 2
     assert _frob(fd, exact) < FD_VS_EXACT_FROB, _frob(fd, exact)
     with pytest.raises(ValueError, match="method"):
-        laplace_scale_tril(scene["tprob"], LensSimulator(scene["tphys"], scene["tcfg"], bs=1),
+        laplace_scale_tril(scene["tprob"], LensSimulator(scene["tphys"], scene["tcfg"], bs=1,
+                                                       device="cpu"),
                            scene["z"], method="bogus")
 
 
@@ -134,7 +136,8 @@ def test_elbo_value_and_grad_match_jax(scene, fused):
                                                              bs=N_VI), d, jnp.asarray(eps))(
         jnp.asarray(params))
     sim = LensSimulator(scene["tphys"], dataclasses.replace(scene["tcfg"],
-                                                            use_fused_render=fused), bs=N_VI)
+                                                            use_fused_render=fused), bs=N_VI,
+                        device="cpu")
     p = torch.tensor(params, requires_grad=True)
     mean, tril = surrogate_unpacker(d)(p)
     val = elbo_loss(scene["tprob"], sim, mean, tril, torch.tensor(eps))
@@ -151,7 +154,7 @@ def _adam(lr):
 
 @pytest.fixture(scope="module")
 def seq(scene):
-    return ModellingSequence(scene["tphys"], scene["tprob"], scene["tcfg"])
+    return ModellingSequence(scene["tphys"], scene["tprob"], scene["tcfg"], device="cpu")
 
 
 def test_svi_zero_lr_keeps_mean(seq, scene):

@@ -85,7 +85,7 @@ def test_fused_tier_and_render_match_jax(name):
     params = jprior.sample(jax.random.PRNGKey(0), BS)
     jsim = JLensSimulator(jphys, _cfg(True), bs=BS)
     sim = LensSimulator(phys_model_from_reference(jphys), sim_config_from_reference(_cfg(True)),
-                        bs=BS)
+                        bs=BS, device="cpu")
     assert sim._fused_niter == jsim._fused_niter
     assert (sim._fused_spec is None) == (jsim._fused_spec is None)
     assert sim._use_fused and jsim._use_fused
@@ -132,7 +132,7 @@ def test_lstsq_simulate_matches_jax(fused):
     params = jprior.constrain(jnp.asarray(z))
     jsim = JLensSimulator(jphys, _cfg(fused), bs=BS)
     sim = LensSimulator(phys_model_from_reference(jphys), sim_config_from_reference(_cfg(fused)),
-                        bs=BS)
+                        bs=BS, device="cpu")
     assert sim.depth == jsim.depth == 16
     assert (sim._fused_spec is not None) and sim._use_fused == fused
     tparams = tree_to_torch(_np_tree(params))
@@ -150,11 +150,11 @@ def test_backward_log_prob_and_gradient_match_jax(fused):
     jphys, jprior, z, obs = _lstsq_family()
     jprob = JBackwardProbModel(jprior, obs, background_rms=0.5, exp_time=100.0)
     prob = BackwardProbModel(prior_from_reference(jprior), obs, background_rms=0.5,
-                             exp_time=100.0)
+                             exp_time=100.0, device="cpu")
     np.testing.assert_allclose(prob.err_map.numpy(), np.asarray(jprob.err_map), rtol=2e-7)
     jsim = JLensSimulator(jphys, _cfg(fused), bs=BS)
     sim = LensSimulator(phys_model_from_reference(jphys), sim_config_from_reference(_cfg(fused)),
-                        bs=BS)
+                        bs=BS, device="cpu")
     lp_j, chi_j = jprob.log_prob(jsim, jnp.asarray(z))
     zt = torch.tensor(z, requires_grad=True)
     lp, chi = prob.log_prob(sim, zt)
@@ -175,9 +175,9 @@ def test_backward_map_steps_lower_chi2():
     builder's CPU twins): finite, and min reduced chi2 does not rise."""
     jphys, jprior, z, obs = _lstsq_family()
     prior = prior_from_reference(jprior)
-    prob = BackwardProbModel(prior, obs, background_rms=0.5, exp_time=100.0)
+    prob = BackwardProbModel(prior, obs, background_rms=0.5, exp_time=100.0, device="cpu")
     cfg = dataclasses.replace(sim_config_from_reference(_cfg(True)))
-    seq = ModellingSequence(phys_model_from_reference(jphys), prob, cfg)
+    seq = ModellingSequence(phys_model_from_reference(jphys), prob, cfg, device="cpu")
     opt = optim.chain(optim.scale_by_adam(), optim.scale_by_schedule(
         optim.polynomial_schedule(-1e-2, -1e-2 / 3, 0.5, 5)))
     sim = seq._sim(BS)

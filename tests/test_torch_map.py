@@ -61,7 +61,7 @@ def scene(demo_prior):
         bkg**2 + np.clip(truth_img, 0, None) / exp_time)
     jprob = JForwardProbModel(demo_prior, obs, background_rms=bkg, exp_time=exp_time)
     tprior = prior_from_reference(demo_prior)
-    tprob = ForwardProbModel(tprior, obs, background_rms=bkg, exp_time=exp_time)
+    tprob = ForwardProbModel(tprior, obs, background_rms=bkg, exp_time=exp_time, device="cpu")
     tphys = PhysicalModel([EPL(18), Shear()], [SersicEllipse()], [SersicEllipse()])
     z = (rng.standard_normal((BS, demo_prior.d)) * 0.5).astype(np.float32)
     return dict(jcfg=jcfg, jphys=jphys, jprob=jprob, tprob=tprob, tphys=tphys,
@@ -76,7 +76,7 @@ def test_simulate_matches_jax(scene, psf_mode, fused):
     tcfg = dataclasses.replace(scene["tcfg"], psf_mode=psf_mode, use_fused_render=fused)
     params = scene["prior"].constrain(jnp.asarray(scene["z"]))
     want = np.asarray(JLensSimulator(scene["jphys"], jcfg, bs=BS).simulate(params))
-    sim = LensSimulator(scene["tphys"], tcfg, bs=BS)
+    sim = LensSimulator(scene["tphys"], tcfg, bs=BS, device="cpu")
     assert sim._use_fused == fused
     got = sim.simulate(tree_to_torch(_np_tree(params))).numpy()
     assert got.shape == (BS, 20, 20)
@@ -91,7 +91,7 @@ def test_masked_simulate_matches_jax(scene):
     params = scene["prior"].constrain(jnp.asarray(scene["z"]))
     jsim = JLensSimulator(scene["jphys"], jcfg, bs=BS)
     want = np.asarray(jsim.simulate(params))
-    sim = LensSimulator(scene["tphys"], sim_config_from_reference(jcfg), bs=BS)
+    sim = LensSimulator(scene["tphys"], sim_config_from_reference(jcfg), bs=BS, device="cpu")
     assert sim.n_live_pix == jsim.n_live_pix == 140
     assert sim.img_x.shape == (560,)
     got = sim.simulate(tree_to_torch(_np_tree(params))).numpy()
@@ -103,8 +103,9 @@ def test_source_only_fused_matches_unfused(scene):
     phys = PhysicalModel([EPL(18), Shear()], [], [SersicEllipse()])
     params = tree_to_torch(_np_tree(scene["prior"].constrain(jnp.asarray(scene["z"]))))
     params = {k: v for k, v in params.items() if k != "lens_light"}
-    fused = LensSimulator(phys, dataclasses.replace(scene["tcfg"], use_fused_render=True), bs=BS)
-    plain = LensSimulator(phys, scene["tcfg"], bs=BS)
+    fused = LensSimulator(phys, dataclasses.replace(scene["tcfg"], use_fused_render=True), bs=BS,
+                          device="cpu")
+    plain = LensSimulator(phys, scene["tcfg"], bs=BS, device="cpu")
     assert fused._use_fused and not plain._use_fused
     want = plain.simulate(params).numpy()
     np.testing.assert_allclose(fused.simulate(params).numpy(), want, rtol=RTOL,
@@ -116,7 +117,8 @@ def test_log_prob_matches_jax(scene, fused):
     jsim = JLensSimulator(scene["jphys"], scene["jcfg"], bs=BS)
     lp_j, chi_j = scene["jprob"].log_prob(jsim, jnp.asarray(scene["z"]))
     tsim = LensSimulator(scene["tphys"],
-                         dataclasses.replace(scene["tcfg"], use_fused_render=fused), bs=BS)
+                         dataclasses.replace(scene["tcfg"], use_fused_render=fused), bs=BS,
+                         device="cpu")
     lp_t, chi_t = scene["tprob"].log_prob(tsim, torch.tensor(scene["z"]))
     np.testing.assert_allclose(lp_t.numpy(), np.asarray(lp_j), rtol=RTOL)
     np.testing.assert_allclose(chi_t.numpy(), np.asarray(chi_j), rtol=RTOL)
@@ -150,7 +152,7 @@ def test_map_steps_match_jax(scene):
     jsim = JLensSimulator(scene["jphys"], scene["jcfg"], bs=BS)
     zj, hist_j = j_fit_map(scene["jprob"], jsim, sched(optax), start=jnp.asarray(scene["z"]),
                            n_samples=BS, num_steps=steps)
-    tsim = LensSimulator(scene["tphys"], scene["tcfg"], bs=BS)
+    tsim = LensSimulator(scene["tphys"], scene["tcfg"], bs=BS, device="cpu")
     zt, hist_t = fit_map(scene["tprob"], tsim, sched(optim), start=scene["z"],
                          n_samples=BS, num_steps=steps)
     assert not np.allclose(zt.numpy(), scene["z"])
@@ -159,7 +161,7 @@ def test_map_steps_match_jax(scene):
 
 
 def test_sequence_map_and_best_start(scene):
-    seq = ModellingSequence(scene["tphys"], scene["tprob"], scene["tcfg"])
+    seq = ModellingSequence(scene["tphys"], scene["tprob"], scene["tcfg"], device="cpu")
     opt = optim.chain(optim.scale_by_adam(), optim.scale_by_schedule(
         optim.polynomial_schedule(-1e-2, -1e-2 / 3, 0.5, 2)))
     z = seq.MAP(opt, n_samples=BS, num_steps=2, seed=0)
@@ -179,13 +181,13 @@ def test_sequence_map_and_best_start(scene):
 def test_phase_simulator_memo_and_exact_policy(scene):
     cache = {}
     cfg = dataclasses.replace(scene["tcfg"], psf_mode=None)
-    a = phase_simulator(cache, cfg, scene["tphys"], 3)
-    assert phase_simulator(cache, cfg, scene["tphys"], 3) is a
-    exact = phase_simulator(cache, cfg, scene["tphys"], 3, exact=True)
+    a = phase_simulator(cache, cfg, scene["tphys"], 3, device="cpu")
+    assert phase_simulator(cache, cfg, scene["tphys"], 3, device="cpu") is a
+    exact = phase_simulator(cache, cfg, scene["tphys"], 3, exact=True, device="cpu")
     assert exact is not a and exact._conv.mode == "fft"
     # rebinding an attribute of the model invalidates the memo
     scene["tphys"].lenses = list(scene["tphys"].lenses)
-    assert phase_simulator(cache, cfg, scene["tphys"], 3) is not a
+    assert phase_simulator(cache, cfg, scene["tphys"], 3, device="cpu") is not a
 
 
 def test_port_never_imports_jax():
@@ -204,12 +206,14 @@ def test_port_never_imports_jax():
 def test_unported_inputs_raise(scene):
     """Inputs this slice does not port are refused, not silently mis-handled."""
     lstsq = PhysicalModel([EPL(18), Shear()], [], [SersicEllipse(use_lstsq=True)])
-    sim = LensSimulator(lstsq, scene["tcfg"], bs=1)  # single-scene lstsq is ported
+    sim = LensSimulator(lstsq, scene["tcfg"], bs=1, device="cpu")  # single-scene lstsq is ported
     with pytest.raises(NotImplementedError, match="M17"):
         sim.lstsq_simulate({}, np.zeros((2, 20, 20)), np.ones((2, 20, 20)))
     with pytest.raises(NotImplementedError, match="M14"):
         PhysicalModel([EPL(18)], [], [SersicEllipse()], lens_redshifts=[0.5])
     with pytest.raises(NotImplementedError, match="M14"):
-        ForwardProbModel(scene["tprob"].prior, np.zeros((20, 20)), centroids_x=[[0.0]])
+        ForwardProbModel(scene["tprob"].prior, np.zeros((20, 20)), centroids_x=[[0.0]],
+                         device="cpu")
     with pytest.raises(NotImplementedError, match="direct"):
-        LensSimulator(scene["tphys"], dataclasses.replace(scene["tcfg"], use_fft=False), bs=1)
+        LensSimulator(scene["tphys"], dataclasses.replace(scene["tcfg"], use_fft=False), bs=1,
+                      device="cpu")

@@ -34,9 +34,9 @@ SEED_KEYS = {"seed", "t", "min_ess", "ess_per_sec", "max_rhat", "accept", "eps",
 @pytest.fixture(scope="module")
 def seq(demo_prior, demo_physmodel, small_sim_config):
     pm = ForwardProbModel(prior_from_reference(demo_prior), np.zeros((20, 20), np.float32),
-                          background_rms=0.1, exp_time=100)
+                          background_rms=0.1, exp_time=100, device="cpu")
     return ModellingSequence(phys_model_from_reference(demo_physmodel), pm,
-                             sim_config_from_reference(small_sim_config))
+                             sim_config_from_reference(small_sim_config), device="cpu")
 
 
 @pytest.mark.quick
