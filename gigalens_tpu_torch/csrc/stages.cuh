@@ -1,13 +1,22 @@
 // Stage device functions of the composable fused render (fused_builder.cu).
 //
-// Each stage mirrors, line for line, its torch twin in
-// gigalens_tpu_torch/ops/cuda/fused_builder.py: the forward stages follow
-// the Pallas builder's tile functions (gigalens_tpu/ops/pallas/
-// fused_builder.py:98-287), the *_bwd functions the hand-derived VJPs
-// (tile_backward_reference), which the CPU tests hold against torch
-// autograd in float64. The EPL stage reuses K1-K3's geometry, angular
-// series and its O(1)-memory backward (lens_math.cuh), with the series
-// depth a runtime loop count.
+// Each stage is written in up to four parts, mirrored line for line by its
+// torch twin in gigalens_tpu_torch/ops/cuda/fused_builder.py:
+//   *_consts    what depends on the sample alone (rotation, sqrt q and its
+//               reciprocal, b, 1/n, 1/R_s, ...), computed once per block into
+//               the stage's slot of shared memory (stage_consts);
+//   *_fwd       the pixel's forward from those constants (K5/K6, and K7's
+//               recompute), following the Pallas builder's tile functions
+//               (gigalens_tpu/ops/pallas/fused_builder.py:98-287);
+//   *_bwd       the pixel's hand-derived VJP, which adds cotangent terms of
+//               per-sample quantities to the stage's sums;
+//   stage_epilogue  the map from a stage's sums to its parameter gradients,
+//               once per sample (linear in the sums: the half-angle VJP, the
+//               axis-ratio chains, theta_E = b / sqrt q, rho0's chain).
+// The EPL and the Sersics are lens_math.cuh's, shared with K1-K3. Stages
+// with nothing to hoist (SIS, Shear, NFW, the Taylor series) keep their
+// per-pixel code; their sums are their gradients and the epilogue copies
+// them. The CPU tests hold the twins against torch autograd in float64.
 #pragma once
 
 #include "lens_math.cuh"
@@ -22,35 +31,31 @@ enum StageOp {
 constexpr int kShapeletCap = 10;  // largest shapelet n_max (local H_n arrays)
 constexpr int kMaxStages = 32;
 constexpr int kFlagLstsq = 1, kFlagSource = 2;
+constexpr int kBuilderTile = 256;  // threads of a block, one pixel each
+constexpr int kSlot = 24;          // floats of per-sample constants a stage may hold
 
 // One stage record: opcode, first packed column, a = EPL niter | series
-// order | shapelet n_max, b = series grid's first row in the extras matrix,
-// flags, first output component.
+// order | shapelet n_max, b = EPL: index of its series table | series:
+// its grid's first row in the extras matrix, flags, first output component,
+// first column of its sums.
 struct StageRec {
-  int op, off, a, b, flags, comp;
+  int op, off, a, b, flags, comp, soff;
 };
 
 struct Spec {
   StageRec st[kMaxStages];  // mass stages first, then light stages
   float pf[kShapeletCap + 1];  // shapelet prefactors 1/sqrt(2^n sqrt(pi) n!)
-  int n_mass, n_light, n_cols, summed;
+  int n_mass, n_light, n_cols, n_sums, n_epl, summed;
 };
 
-// Block-level gradient accumulator of K7: each column's per-thread values
-// are summed over the warp by shuffles, then lane 0 adds the warp's sum to
-// its own row of shared memory. Every thread of the block calls add() for
-// the same columns in the same order (the stage program is uniform over a
-// block), so the shuffles never diverge; lanes past the image add 0.
-struct Reducer {
-  float* red;  // [warps][n_cols] in shared memory
-  int n_cols, lane, warp;
-  bool active;
-  __device__ __forceinline__ void add(int col, float v) const {
-    v = active ? v : 0.0f;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    if (lane == 0) red[warp * n_cols + col] += v;
-  }
+// K7's accumulator: each thread owns one float of every sums column, laid
+// out column-major ([column][thread]) so a warp's access is conflict-free.
+// A stage adds its terms with plain shared-memory read-modify-writes (no
+// shuffles in the pixel loop); the block reduces the columns once, after
+// its last tile.
+struct SmemAcc {
+  float* base;  // this thread's float of the stage's first column
+  __device__ __forceinline__ void add(int k, float v) const { base[k * kBuilderTile] += v; }
 };
 
 // Where K5/K6 put each light output: summed into one value, or one image
@@ -69,13 +74,12 @@ struct Emit {
 };
 
 // A light output's cotangent in K7: the shared (bs, P) cotangent of the
-// summed render, or the component's own plane; 0 past the image.
+// summed render, or the component's own plane.
 struct Cot {
   const float* ct;
   size_t stride, base;
-  bool summed, active;
+  bool summed;
   __device__ __forceinline__ float operator()(int comp) const {
-    if (!active) return 0.0f;
     return summed ? ct[base] : ct[comp * stride + base];
   }
 };
@@ -83,86 +87,6 @@ struct Cot {
 // ---------------------------------------------------------------------------
 // mass stages: forward (adds the deflection) and VJP (cotangent on alpha)
 // ---------------------------------------------------------------------------
-
-// q = (theta_E, gamma, e1, e2, cx, cy)
-__device__ __forceinline__ void epl_fwd(const float* q, int niter, float x, float y, float& ax,
-                                        float& ay) {
-  const EplGeom g = epl_geom(q, x, y);
-  const float t = q[1] - 1.0f;
-  float ox, oy;
-  omega_cs(g.qx / g.R, g.yr / g.R, (1.0f - g.q) / (1.0f + g.q), t, niter, ox, oy);
-  const float b = q[0] * sqrtf(g.q);
-  const float pref = (2.0f * b) / (1.0f + g.q) * powp(b / g.R, t - 1.0f);
-  const float axr = pref * ox, ayr = pref * oy;
-  ax += axr * g.cp - ayr * g.sp;
-  ay += axr * g.sp + ayr * g.cp;
-}
-
-__device__ __forceinline__ void epl_bwd(const float* q, int niter, float x, float y, float g_ax,
-                                        float g_ay, int off, const Reducer& rd) {
-  const float te = q[0], e1 = q[2], e2 = q[3];
-  const EplGeom g = epl_geom(q, x, y);
-  const float cp = g.cp, sp = g.sp, qq = g.q, R = g.R;
-  const float sq = sqrtf(qq);
-  const float b = te * sq;
-  const float t = q[1] - 1.0f;
-  const float cos_t = g.qx / R, sin_t = g.yr / R;
-  const float f = (1.0f - qq) / (1.0f + qq);
-  float ox, oy;
-  omega_cs(cos_t, sin_t, f, t, niter, ox, oy);
-  const float p0 = 2.0f * b / (1.0f + qq);
-  const float lbr = logf(b / R);
-  const float w = expf((t - 1.0f) * lbr);
-  const float pref = p0 * w;
-  const float axr = pref * ox, ayr = pref * oy;
-
-  // rotation back from the ellipse frame
-  const float g_axr = g_ax * cp + g_ay * sp;
-  const float g_ayr = -g_ax * sp + g_ay * cp;
-  float g_cp = g_ax * axr + g_ay * ayr;
-  float g_sp = -g_ax * ayr + g_ay * axr;
-  // prefactor (2 b / (1 + q)) (b / R)^(t - 1)
-  const float g_pref = g_axr * ox + g_ayr * oy;
-  const float g_ox = g_axr * pref, g_oy = g_ayr * pref;
-  const float g_arg = g_pref * p0 * w;  // cotangent of (t - 1) log(b / R)
-  float g_t = g_arg * lbr;
-  const float g_lbr = g_arg * (t - 1.0f);
-  const float g_b = g_lbr / b + g_pref * w * 2.0f / (1.0f + qq);
-  float g_R = -g_lbr / R;
-  float g_q = -g_pref * w * 2.0f * b / ((1.0f + qq) * (1.0f + qq));
-  // series backward: Omega cotangents -> (cos_t, sin_t, f, t) cotangents
-  float g_c, g_s, g_f, g_tt;
-  omega_cs_bwd(cos_t, sin_t, f, t, niter, g_ox, g_oy, g_c, g_s, g_f, g_tt);
-  g_t = g_t + g_tt;
-  g_q = g_q - 2.0f * g_f / ((1.0f + qq) * (1.0f + qq));
-  g_q = g_q + g_c * g.xr / R;
-  float g_xr = g_c * qq / R;
-  float g_yr = g_s / R;
-  g_R = g_R - (g_c * cos_t + g_s * sin_t) / R;
-  // R -> (q, xr, yr) -> (dx, dy, cos phi, sin phi) -> params; a radius
-  // outside the clip band (a pixel on the center) passes nothing
-  const float g_rr = (g.rr > 1e-10f && g.rr < 1e10f) ? g_R / g.rr : 0.0f;
-  const float g_qx = g_rr * g.qx;
-  g_yr = g_yr + g_rr * g.yr;
-  g_q = g_q + g_qx * g.xr;
-  g_xr = g_xr + g_qx * qq;
-  const float g_te = g_b * sq;
-  g_q = g_q + g_b * te * 0.5f / sq;
-  const float g_dx = g_xr * cp - g_yr * sp;
-  const float g_dy = g_xr * sp + g_yr * cp;
-  g_cp = g_cp + g_xr * g.dx + g_yr * g.dy;
-  g_sp = g_sp + g_xr * g.dy - g_yr * g.dx;
-  const float g_cc = -2.0f * g_q / ((1.0f + g.cc) * (1.0f + g.cc));
-  const float g_m = g.m < 1.0f ? g_cc : 0.0f;
-  float g_e1 = 0.0f, g_e2 = 0.0f;
-  half_angle_bwd(e1, e2, g_cp, g_sp, g_e1, g_e2);
-  rd.add(off, g_te);
-  rd.add(off + 1, g_t);
-  rd.add(off + 2, g_e1 + g_m * e1 / g.m);
-  rd.add(off + 3, g_e2 + g_m * e2 / g.m);
-  rd.add(off + 4, -g_dx);
-  rd.add(off + 5, -g_dy);
-}
 
 // q = (theta_E, cx, cy)
 __device__ __forceinline__ void sis_fwd(const float* q, float x, float y, float& ax, float& ay) {
@@ -173,7 +97,7 @@ __device__ __forceinline__ void sis_fwd(const float* q, float x, float y, float&
 }
 
 __device__ __forceinline__ void sis_bwd(const float* q, float x, float y, float g_ax, float g_ay,
-                                        int off, const Reducer& rd) {
+                                        const SmemAcc& acc) {
   const float te = q[0];
   const float dx = x - q[1], dy = y - q[2];
   const float rr = sqrtf(dx * dx + dy * dy);
@@ -183,9 +107,9 @@ __device__ __forceinline__ void sis_bwd(const float* q, float x, float y, float 
   const float g_rr = (rr > 1e-10f && rr < 1e10f) ? g_R / rr : 0.0f;
   const float g_dx = g_ax * te / R + g_rr * dx;
   const float g_dy = g_ay * te / R + g_rr * dy;
-  rd.add(off, g_te);
-  rd.add(off + 1, -g_dx);
-  rd.add(off + 2, -g_dy);
+  acc.add(0, g_te);
+  acc.add(1, -g_dx);
+  acc.add(2, -g_dy);
 }
 
 // q = (gamma1, gamma2)
@@ -195,10 +119,10 @@ __device__ __forceinline__ void shear_fwd(const float* q, float x, float y, floa
   ay += q[1] * x - q[0] * y;
 }
 
-__device__ __forceinline__ void shear_bwd(float x, float y, float g_ax, float g_ay, int off,
-                                          const Reducer& rd) {
-  rd.add(off, g_ax * x - g_ay * y);
-  rd.add(off + 1, g_ax * y + g_ay * x);
+__device__ __forceinline__ void shear_bwd(float x, float y, float g_ax, float g_ay,
+                                          const SmemAcc& acc) {
+  acc.add(0, g_ax * x - g_ay * y);
+  acc.add(1, g_ax * y + g_ay * x);
 }
 
 // Wright & Brainerd g(x) and, for the VJP, dg/dx of the SELECTED branch
@@ -290,7 +214,7 @@ __device__ __forceinline__ float rho0_bwd(float Rs, float alpha_Rs, float g_rho0
 }
 
 __device__ __forceinline__ void nfw_bwd(const float* q, float x, float y, float g_ax, float g_ay,
-                                        int off, const Reducer& rd) {
+                                        const SmemAcc& acc) {
   const float Rs = q[0], alpha_Rs = q[1];
   const float rho0 = alpha_Rs / (4.0f * Rs * Rs * kOneMinusLog2);
   const float dx = x - q[2], dy = y - q[3];
@@ -300,100 +224,132 @@ __device__ __forceinline__ void nfw_bwd(const float* q, float x, float y, float 
   g_dx = g_dx + g_Rr * dx;
   g_dy = g_dy + g_Rr * dy;
   const float g_aRs = rho0_bwd(Rs, alpha_Rs, g_rho0, g_Rs);
-  rd.add(off, g_Rs);
-  rd.add(off + 1, g_aRs);
-  rd.add(off + 2, -g_dx);
-  rd.add(off + 3, -g_dy);
+  acc.add(0, g_Rs);
+  acc.add(1, g_aRs);
+  acc.add(2, -g_dx);
+  acc.add(3, -g_dy);
 }
 
-// NFW_ELLIPSE frame: the stretched coordinates of one pixel
-struct NfwEFrame {
-  float cp, sp, m, c, q, n1, d1, se1, se2, dx, dy, xr, yr, xs, ys, R;
+// NFW_ELLIPSE: the axis stretch (1 -+ e)^(1/2) from the axis ratio
+__device__ __forceinline__ void nfw_e_stretch(float e1, float e2, float& m, float& c, float& q,
+                                              float& n1, float& d1, float& se1, float& se2) {
+  m = sqrtf(e1 * e1 + e2 * e2 + 1e-24f);
+  c = fminf(m, 0.9999f);
+  q = (1.0f - c) / (1.0f + c);
+  n1 = 1.0f - q * q;
+  d1 = 1.0f + q * q;
+  const float e = fabsf(n1) / d1;
+  se1 = sqrtf(1.0f - e);
+  se2 = sqrtf(1.0f + e);
+}
+
+struct NfwEK {
+  float cp, sp, se1, se2, Rs, rho0, cx, cy;
 };
+// cotangents of Rs (direct), rho0, cos phi, sin phi, se1, se2, dx, dy
+constexpr int kNfwESums = 8;
 
 // q = (Rs, alpha_Rs, e1, e2, cx, cy)
-__device__ __forceinline__ NfwEFrame nfw_e_frame(const float* q, float x, float y) {
-  NfwEFrame f;
-  half_angle(q[2], q[3], f.cp, f.sp);
-  f.m = sqrtf(q[2] * q[2] + q[3] * q[3] + 1e-24f);
-  f.c = fminf(f.m, 0.9999f);
-  f.q = (1.0f - f.c) / (1.0f + f.c);
-  f.n1 = 1.0f - f.q * f.q;
-  f.d1 = 1.0f + f.q * f.q;
-  const float e = fabsf(f.n1) / f.d1;
-  f.se1 = sqrtf(1.0f - e);
-  f.se2 = sqrtf(1.0f + e);
-  f.dx = x - q[4];
-  f.dy = y - q[5];
-  f.xr = f.dx * f.cp + f.dy * f.sp;
-  f.yr = -f.dx * f.sp + f.dy * f.cp;
-  f.xs = f.xr * f.se1;
-  f.ys = f.yr * f.se2;
+__device__ inline NfwEK nfw_e_consts(const float* q) {
+  NfwEK k;
+  half_angle(q[2], q[3], k.cp, k.sp);
+  float m, c, qq, n1, d1;
+  nfw_e_stretch(q[2], q[3], m, c, qq, n1, d1, k.se1, k.se2);
+  k.Rs = q[0];
+  k.rho0 = q[1] / (4.0f * q[0] * q[0] * kOneMinusLog2);
+  k.cx = q[4];
+  k.cy = q[5];
+  return k;
+}
+
+// The stretched coordinates of one pixel
+struct NfwEPix {
+  float dx, dy, xr, yr, xs, ys, R;
+};
+
+__device__ __forceinline__ NfwEPix nfw_e_pixel(const NfwEK& k, float x, float y) {
+  NfwEPix f;
+  f.dx = x - k.cx;
+  f.dy = y - k.cy;
+  f.xr = f.dx * k.cp + f.dy * k.sp;
+  f.yr = -f.dx * k.sp + f.dy * k.cp;
+  f.xs = f.xr * k.se1;
+  f.ys = f.yr * k.se2;
   f.R = sqrtf(f.xs * f.xs + f.ys * f.ys);
   return f;
 }
 
-__device__ __forceinline__ void nfw_e_fwd(const float* q, float x, float y, float& ax,
+__device__ __forceinline__ void nfw_e_fwd(const NfwEK& k, float x, float y, float& ax,
                                           float& ay) {
-  const float rho0 = q[1] / (4.0f * q[0] * q[0] * kOneMinusLog2);
-  const NfwEFrame f = nfw_e_frame(q, x, y);
-  const float a = nfw_radial(f.R, q[0], rho0);
-  const float fx = a * f.xs * f.se1, fy = a * f.ys * f.se2;
-  ax += fx * f.cp - fy * f.sp;
-  ay += fx * f.sp + fy * f.cp;
+  const NfwEPix f = nfw_e_pixel(k, x, y);
+  const float a = nfw_radial(f.R, k.Rs, k.rho0);
+  const float fx = a * f.xs * k.se1, fy = a * f.ys * k.se2;
+  ax += fx * k.cp - fy * k.sp;
+  ay += fx * k.sp + fy * k.cp;
 }
 
-__device__ __forceinline__ void nfw_e_bwd(const float* q, float x, float y, float g_ax,
-                                          float g_ay, int off, const Reducer& rd) {
-  const float Rs = q[0], alpha_Rs = q[1], e1 = q[2], e2 = q[3];
-  const float rho0 = alpha_Rs / (4.0f * Rs * Rs * kOneMinusLog2);
-  const NfwEFrame f = nfw_e_frame(q, x, y);
-  const float a = nfw_radial(f.R, Rs, rho0);
+__device__ __forceinline__ void nfw_e_bwd(const NfwEK& k, float x, float y, float g_ax,
+                                          float g_ay, const SmemAcc& acc) {
+  const NfwEPix f = nfw_e_pixel(k, x, y);
+  const float a = nfw_radial(f.R, k.Rs, k.rho0);
   const float fx = a * f.xs, fy = a * f.ys;
-  const float ox = fx * f.se1, oy = fy * f.se2;
+  const float ox = fx * k.se1, oy = fy * k.se2;
 
   // rotation back
-  const float g_ox = g_ax * f.cp + g_ay * f.sp;
-  const float g_oy = -g_ax * f.sp + g_ay * f.cp;
+  const float g_ox = g_ax * k.cp + g_ay * k.sp;
+  const float g_oy = -g_ax * k.sp + g_ay * k.cp;
   float g_cp = g_ax * ox + g_ay * oy;
   float g_sp = -g_ax * oy + g_ay * ox;
   // axis stretch of the output
-  const float g_fx = g_ox * f.se1, g_fy = g_oy * f.se2;
+  const float g_fx = g_ox * k.se1, g_fy = g_oy * k.se2;
   float g_se1 = g_ox * fx, g_se2 = g_oy * fy;
   float g_Rr, g_Rs, g_rho0, g_xs, g_ys;
-  nfw_radial_bwd(f.R, Rs, rho0, f.xs, f.ys, g_fx, g_fy, g_Rr, g_Rs, g_rho0, g_xs, g_ys);
+  nfw_radial_bwd(f.R, k.Rs, k.rho0, f.xs, f.ys, g_fx, g_fy, g_Rr, g_Rs, g_rho0, g_xs, g_ys);
   g_xs = g_xs + g_Rr * f.xs;
   g_ys = g_ys + g_Rr * f.ys;
   // axis stretch of the input
-  const float g_xr = g_xs * f.se1, g_yr = g_ys * f.se2;
+  const float g_xr = g_xs * k.se1, g_yr = g_ys * k.se2;
   g_se1 = g_se1 + g_xs * f.xr;
   g_se2 = g_se2 + g_ys * f.yr;
-  const float g_e = -g_se1 * 0.5f / f.se1 + g_se2 * 0.5f / f.se2;
-  const float sgn = f.n1 > 0.0f ? 1.0f : (f.n1 < 0.0f ? -1.0f : 0.0f);
-  const float g_q =
-      g_e * (sgn * (-2.0f * f.q) / f.d1 - fabsf(f.n1) * 2.0f * f.q / (f.d1 * f.d1));
-  const float g_c = -2.0f * g_q / ((1.0f + f.c) * (1.0f + f.c));
-  const float g_m = f.m < 0.9999f ? g_c : 0.0f;
   // rotation into the ellipse frame
-  const float g_dx = g_xr * f.cp - g_yr * f.sp;
-  const float g_dy = g_xr * f.sp + g_yr * f.cp;
   g_cp = g_cp + g_xr * f.dx + g_yr * f.dy;
   g_sp = g_sp + g_xr * f.dy - g_yr * f.dx;
+  acc.add(0, g_Rs);
+  acc.add(1, g_rho0);
+  acc.add(2, g_cp);
+  acc.add(3, g_sp);
+  acc.add(4, g_se1);
+  acc.add(5, g_se2);
+  acc.add(6, g_xr * k.cp - g_yr * k.sp);
+  acc.add(7, g_xr * k.sp + g_yr * k.cp);
+}
+
+// g = the kNfwESums sums -> out = the gradients of (Rs, alpha_Rs, e1, e2, cx, cy)
+__device__ inline void nfw_e_epilogue(const float* q, const float* g, float* out) {
+  const float Rs = q[0], alpha_Rs = q[1], e1 = q[2], e2 = q[3];
+  float m, c, qq, n1, d1, se1, se2;
+  nfw_e_stretch(e1, e2, m, c, qq, n1, d1, se1, se2);
+  const float g_e = -g[4] * 0.5f / se1 + g[5] * 0.5f / se2;
+  const float sgn = n1 > 0.0f ? 1.0f : (n1 < 0.0f ? -1.0f : 0.0f);
+  const float g_q = g_e * (sgn * (-2.0f * qq) / d1 - fabsf(n1) * 2.0f * qq / (d1 * d1));
+  const float g_c = -2.0f * g_q / ((1.0f + c) * (1.0f + c));
+  const float g_m = m < 0.9999f ? g_c : 0.0f;
   float g_e1 = 0.0f, g_e2 = 0.0f;
-  half_angle_bwd(e1, e2, g_cp, g_sp, g_e1, g_e2);
-  const float g_aRs = rho0_bwd(Rs, alpha_Rs, g_rho0, g_Rs);
-  rd.add(off, g_Rs);
-  rd.add(off + 1, g_aRs);
-  rd.add(off + 2, g_e1 + g_m * e1 / f.m);
-  rd.add(off + 3, g_e2 + g_m * e2 / f.m);
-  rd.add(off + 4, -g_dx);
-  rd.add(off + 5, -g_dy);
+  half_angle_bwd(e1, e2, g[2], g[3], g_e1, g_e2);
+  float g_Rs = g[0];
+  const float g_aRs = rho0_bwd(Rs, alpha_Rs, g[1], g_Rs);
+  out[0] = g_Rs;
+  out[1] = g_aRs;
+  out[2] = g_e1 + g_m * e1 / m;
+  out[3] = g_e2 + g_m * e2 / m;
+  out[4] = -g[6];
+  out[5] = -g[7];
 }
 
 // q = (dv, amp); grid = this pixel's column of the (2k, P) coefficient
 // rows: [0:k] alpha_x, [k:2k] alpha_y, k = order + 1
-__device__ __forceinline__ void series_fwd(const float* q, int order, const float* grid,
-                                           int npix, float& ax, float& ay) {
+__device__ __forceinline__ void series_stage_fwd(const float* q, int order, const float* grid,
+                                                 int npix, float& ax, float& ay) {
   const int k = order + 1;
   float sx = 0.0f, sy = 0.0f, wn = 1.0f;
   for (int n = 0; n < k; ++n) {
@@ -405,8 +361,9 @@ __device__ __forceinline__ void series_fwd(const float* q, int order, const floa
   ay += q[1] * sy;
 }
 
-__device__ __forceinline__ void series_bwd(const float* q, int order, const float* grid, int npix,
-                                           float g_ax, float g_ay, int off, const Reducer& rd) {
+__device__ __forceinline__ void series_stage_bwd(const float* q, int order, const float* grid,
+                                                 int npix, float g_ax, float g_ay,
+                                                 const SmemAcc& acc) {
   const int k = order + 1;
   float sx = 0.0f, sy = 0.0f, dsx = 0.0f, dsy = 0.0f, wn = 1.0f;
   for (int n = 0; n < k; ++n) {
@@ -419,16 +376,16 @@ __device__ __forceinline__ void series_bwd(const float* q, int order, const floa
     sx = sx + wn * grid[(size_t)n * npix];
     sy = sy + wn * grid[(size_t)(k + n) * npix];
   }
-  rd.add(off, q[1] * (g_ax * dsx + g_ay * dsy));
-  rd.add(off + 1, g_ax * sx + g_ay * sy);
+  acc.add(0, q[1] * (g_ax * dsx + g_ay * dsy));
+  acc.add(1, g_ax * sx + g_ay * sy);
 }
 
 // ---------------------------------------------------------------------------
 // light stages
 // ---------------------------------------------------------------------------
 
-// The 7-column SersicEllipse row of sersic_light/sersic_bwd for a stage:
-// spherical Sersic has zero ellipticity, an lstsq stage unit amplitude.
+// The 7-column SersicEllipse row of sersic_consts for a stage: spherical
+// Sersic has zero ellipticity, an lstsq stage unit amplitude.
 __device__ __forceinline__ void sersic_row(int op, const float* q, bool lstsq, float* r) {
   if (op == kSersicE) {
     for (int j = 0; j < 6; ++j) r[j] = q[j];
@@ -443,106 +400,144 @@ __device__ __forceinline__ void sersic_row(int op, const float* q, bool lstsq, f
   }
 }
 
-// CoreSersic geometry; q = (R_s, n_s, Rb, alpha, gamma, e1, e2, cx, cy[, Ie])
-struct CoreGeom {
-  float cp, sp, c, sq, dx, dy, a, b, xt1, xt2, rr, R;
+// A Sersic stage's sums -> its packed gradient columns
+__device__ inline void sersic_stage_epilogue(int op, const float* q, bool lstsq, const float* g,
+                                             float* out) {
+  float row[7], t[7];
+  sersic_row(op, q, lstsq, row);
+  sersic_epilogue(row, g, t);
+  if (op == kSersicE) {
+    for (int j = 0; j < 6; ++j) out[j] = t[j];
+    if (!lstsq) out[6] = t[6];
+  } else {
+    out[0] = t[0];
+    out[1] = t[1];
+    out[2] = t[4];
+    out[3] = t[5];
+    if (!lstsq) out[4] = t[6];
+  }
+}
+
+// CoreSersic; q = (R_s, n_s, Rb, alpha, gamma, e1, e2, cx, cy[, Ie])
+struct CoreK {
+  float cp, sp, sq, isq, half_isq, cx, cy, bn, al, r, k, P2, P3, lRb, lRs, amp;
+};
+// cotangents of R_s, n_s, Rb, alpha, gamma, cos phi, sin phi, q, dx, dy, Ie
+constexpr int kCoreSums = 11;
+
+__device__ inline CoreK core_consts(const float* q, bool lstsq) {
+  CoreK k;
+  const float R_s = q[0], n_s = q[1], Rb = q[2], al = q[3], ga = q[4], e1 = q[5], e2 = q[6];
+  half_angle(e1, e2, k.cp, k.sp);
+  const float c = sqrtf(e1 * e1 + e2 * e2 + 1e-24f);
+  const float qq = (1.0f - c) / (1.0f + c);
+  k.sq = sqrtf(qq);
+  k.isq = 1.0f / k.sq;
+  k.half_isq = 0.5f * k.isq;
+  k.cx = q[7];
+  k.cy = q[8];
+  k.bn = 1.9992f * n_s - 0.3271f;
+  k.al = al;
+  k.r = ga / al;
+  k.k = 1.0f / (al * n_s);
+  k.lRb = logf(Rb);
+  k.lRs = logf(R_s);
+  k.P2 = expf(al * k.lRb);
+  k.P3 = expf(al * k.lRs);
+  k.amp = lstsq ? 1.0f : q[9];
+  return k;
+}
+
+// What the CoreSersic needs of one pixel; its shape is F * E
+struct CorePix {
+  float dx, dy, a, xt1, xt2, rr, R, lR, P1, u, lbr, B, A, lA, F, lu, W, E;
 };
 
-__device__ __forceinline__ CoreGeom core_geom(const float* q, float x, float y) {
-  CoreGeom g;
-  const float e1 = q[5], e2 = q[6];
-  half_angle(e1, e2, g.cp, g.sp);
-  g.c = sqrtf(e1 * e1 + e2 * e2 + 1e-24f);
-  const float qq = (1.0f - g.c) / (1.0f + g.c);
-  g.sq = sqrtf(qq);
-  g.dx = x - q[7];
-  g.dy = y - q[8];
-  g.a = g.cp * g.dx + g.sp * g.dy;
-  g.b = -g.sp * g.dx + g.cp * g.dy;
-  g.xt1 = g.a * g.sq;
-  g.xt2 = g.b / g.sq;
+__device__ __forceinline__ CorePix core_pixel(const CoreK& k, float x, float y) {
+  CorePix g;
+  g.dx = x - k.cx;
+  g.dy = y - k.cy;
+  g.a = k.cp * g.dx + k.sp * g.dy;
+  const float bb = -k.sp * g.dx + k.cp * g.dy;
+  g.xt1 = g.a * k.sq;
+  g.xt2 = bb * k.isq;
   g.rr = sqrtf(g.xt1 * g.xt1 + g.xt2 * g.xt2);
   g.R = fminf(fmaxf(g.rr, 1e-10f), 1e10f);
+  g.lR = logf(g.R);
+  g.P1 = expf(k.al * g.lR);
+  g.u = (g.P1 + k.P2) / k.P3;
+  g.lbr = k.lRb - g.lR;  // log(Rb / R)
+  g.B = expf(k.al * g.lbr);
+  g.A = 1.0f + g.B;
+  g.lA = logf(g.A);
+  g.F = expf(k.r * g.lA);
+  g.lu = logf(g.u);
+  g.W = expf(k.k * g.lu);
+  g.E = expf(-k.bn * (g.W - 1.0f));
   return g;
 }
 
-__device__ __forceinline__ float core_sersic_shape(const float* q, float x, float y) {
-  const CoreGeom g = core_geom(q, x, y);
-  const float R_s = q[0], n_s = q[1], Rb = q[2], al = q[3], ga = q[4];
-  const float bn = 1.9992f * n_s - 0.3271f;
-  const float u = (powp(g.R, al) + powp(Rb, al)) / powp(R_s, al);
-  return powp(1.0f + powp(Rb / g.R, al), ga / al) *
-         expf(-bn * (powp(u, 1.0f / (al * n_s)) - 1.0f));
-}
-
-__device__ __forceinline__ void core_sersic_bwd(const float* q, bool lstsq, float x, float y,
-                                                float ct, int off, const Reducer& rd,
+__device__ __forceinline__ void core_sersic_bwd(const float* q, const CoreK& k, bool lstsq,
+                                                float x, float y, float ct, const SmemAcc& acc,
                                                 float& g_x, float& g_y) {
-  const float R_s = q[0], n_s = q[1], Rb = q[2], al = q[3], ga = q[4], e1 = q[5], e2 = q[6];
-  const CoreGeom g = core_geom(q, x, y);
-  const float R = g.R;
-  const float bn = 1.9992f * n_s - 0.3271f;
-  const float P1 = powp(R, al), P2 = powp(Rb, al), P3 = powp(R_s, al);
-  const float u = (P1 + P2) / P3;
-  const float lbr = logf(Rb / R);
-  const float B = expf(al * lbr);
-  const float A = 1.0f + B;
-  const float r = ga / al;
-  const float lA = logf(A);
-  const float F = expf(r * lA);
-  const float k = 1.0f / (al * n_s);
-  const float lu = logf(u);
-  const float W = expf(k * lu);
-  const float E = expf(-bn * (W - 1.0f));
-  const float g_shape = lstsq ? ct : ct * q[9];
-  const float g_F = g_shape * E;
-  const float g_E = g_shape * F;
-  const float g_bn = -g_E * E * (W - 1.0f);
-  const float g_W = -g_E * E * bn;
-  const float g_k = g_W * W * lu;
-  const float g_u = g_W * W * k / u;
-  float g_al = -g_k * k / al;
-  const float g_n = -g_k * k / n_s + 1.9992f * g_bn;
-  const float g_P12 = g_u / P3;  // u = (P1 + P2) / P3
-  const float g_P3 = -g_u * u / P3;
-  g_al = g_al + g_P12 * P1 * logf(R) + g_P12 * P2 * logf(Rb) + g_P3 * P3 * logf(R_s);
-  float g_R = g_P12 * P1 * al / R;
-  float g_Rb = g_P12 * P2 * al / Rb;
-  const float g_Rs = g_P3 * P3 * al / R_s;
-  const float g_r = g_F * F * lA;
-  const float g_B = g_F * F * r / A;
+  const float R_s = q[0], n_s = q[1], Rb = q[2], al = q[3], ga = q[4];
+  const CorePix g = core_pixel(k, x, y);
+  const float g_shape = ct * k.amp;
+  const float g_F = g_shape * g.E;
+  const float g_E = g_shape * g.F;
+  const float g_bn = -g_E * g.E * (g.W - 1.0f);
+  const float g_W = -g_E * g.E * k.bn;
+  const float g_k = g_W * g.W * g.lu;
+  const float g_u = g_W * g.W * k.k / g.u;
+  float g_al = -g_k * k.k / al;
+  const float g_n = -g_k * k.k / n_s + 1.9992f * g_bn;
+  const float g_P12 = g_u / k.P3;  // u = (P1 + P2) / P3
+  const float g_P3 = -g_u * g.u / k.P3;
+  g_al = g_al + g_P12 * g.P1 * g.lR + g_P12 * k.P2 * k.lRb + g_P3 * k.P3 * k.lRs;
+  float g_R = g_P12 * g.P1 * al / g.R;
+  float g_Rb = g_P12 * k.P2 * al / Rb;
+  const float g_Rs = g_P3 * k.P3 * al / R_s;
+  const float g_r = g_F * g.F * g.lA;
+  const float g_B = g_F * g.F * k.r / g.A;
   const float g_ga = g_r / al;
-  g_al = g_al - g_r * ga / (al * al) + g_B * B * lbr;
-  const float g_lbr = g_B * B * al;
+  g_al = g_al - g_r * ga / (al * al) + g_B * g.B * g.lbr;
+  const float g_lbr = g_B * g.B * al;
   g_Rb = g_Rb + g_lbr / Rb;
-  g_R = g_R - g_lbr / R;
-  // elliptical radius -> geometry (as sersic_bwd, with R's clip band)
+  g_R = g_R - g_lbr / g.R;
+  // elliptical radius -> geometry (as the Sersic's, with R's clip band)
   const float g_rr = (g.rr > 1e-10f && g.rr < 1e10f) ? g_R / g.rr : 0.0f;
   const float g_xt1 = g_rr * g.xt1;
   const float g_xt2 = g_rr * g.xt2;
-  const float g_a = g_xt1 * g.sq;
-  const float g_b = g_xt2 / g.sq;
-  const float g_sq = g_xt1 * g.a - g_xt2 * g.xt2 / g.sq;
-  const float g_cp = g_a * g.dx + g_b * g.dy;
-  const float g_sp = g_a * g.dy - g_b * g.dx;
-  const float g_dx = g_a * g.cp - g_b * g.sp;
-  const float g_dy = g_a * g.sp + g_b * g.cp;
-  const float g_q = g_sq * 0.5f / g.sq;
-  const float g_c = -2.0f * g_q / ((1.0f + g.c) * (1.0f + g.c));
-  float g_e1 = 0.0f, g_e2 = 0.0f;
-  half_angle_bwd(e1, e2, g_cp, g_sp, g_e1, g_e2);
-  rd.add(off, g_Rs);
-  rd.add(off + 1, g_n);
-  rd.add(off + 2, g_Rb);
-  rd.add(off + 3, g_al);
-  rd.add(off + 4, g_ga);
-  rd.add(off + 5, g_e1 + g_c * e1 / g.c);
-  rd.add(off + 6, g_e2 + g_c * e2 / g.c);
-  rd.add(off + 7, -g_dx);
-  rd.add(off + 8, -g_dy);
-  if (!lstsq) rd.add(off + 9, ct * F * E);
-  g_x = g_dx;
-  g_y = g_dy;
+  const float g_a = g_xt1 * k.sq;
+  const float g_b = g_xt2 * k.isq;
+  g_x = g_a * k.cp - g_b * k.sp;
+  g_y = g_a * k.sp + g_b * k.cp;
+  acc.add(0, g_Rs);
+  acc.add(1, g_n);
+  acc.add(2, g_Rb);
+  acc.add(3, g_al);
+  acc.add(4, g_ga);
+  acc.add(5, g_a * g.dx + g_b * g.dy);
+  acc.add(6, g_a * g.dy - g_b * g.dx);
+  acc.add(7, (g_xt1 * g.a - g_xt2 * g.xt2 * k.isq) * k.half_isq);
+  acc.add(8, g_x);
+  acc.add(9, g_y);
+  if (!lstsq) acc.add(10, ct * g.F * g.E);
+}
+
+// g = the kCoreSums sums -> out = the gradients of the 9 (10) columns
+__device__ inline void core_epilogue(const float* q, bool lstsq, const float* g, float* out) {
+  const float e1 = q[5], e2 = q[6];
+  const float c = sqrtf(e1 * e1 + e2 * e2 + 1e-24f);
+  const float g_c = -2.0f * g[7] / ((1.0f + c) * (1.0f + c));
+  float h1 = 0.0f, h2 = 0.0f;
+  half_angle_bwd(e1, e2, g[5], g[6], h1, h2);
+  for (int j = 0; j < 5; ++j) out[j] = g[j];
+  out[5] = h1 + g_c * e1 / c;
+  out[6] = h2 + g_c * e2 / c;
+  out[7] = -g[8];
+  out[8] = -g[9];
+  if (!lstsq) out[9] = g[10];
 }
 
 // Raw physicists' Hermite polynomials H_0..H_nmax at w (H[n] for n <= n_max)
@@ -558,10 +553,23 @@ __device__ __forceinline__ void hermites(float w, int n_max, float* H) {
 
 // q = (beta, cx, cy[, amp_0..amp_L-1]); components in triangular order:
 // by total order N, then (n1, n2) = (N - j, j)
-__device__ __forceinline__ void shapelets_fwd(const float* q, int n_max, bool lstsq, int comp,
-                                              float x, float y, const float* pf, Emit& emit) {
-  const float u = (x - q[1]) / q[0];
-  const float v = (y - q[2]) / q[0];
+struct ShapeletK {
+  float ib, cx, cy;  // 1 / beta and the center
+};
+
+__device__ inline ShapeletK shapelet_consts(const float* q) {
+  return ShapeletK{1.0f / q[0], q[1], q[2]};
+}
+
+__device__ __forceinline__ int shapelet_count(int n_max) {
+  return (n_max + 1) * (n_max + 2) / 2;
+}
+
+__device__ __forceinline__ void shapelets_fwd(const float* q, const ShapeletK& sk, int n_max,
+                                              bool lstsq, int comp, float x, float y,
+                                              const float* pf, Emit& emit) {
+  const float u = (x - sk.cx) * sk.ib;
+  const float v = (y - sk.cy) * sk.ib;
   const float gauss = expf(-(u * u + v * v) / 2.0f);
   float hu[kShapeletCap + 1], hv[kShapeletCap + 1];
   hermites(u, n_max, hu);
@@ -589,13 +597,13 @@ __device__ __forceinline__ void shapelets_fwd(const float* q, int n_max, bool ls
   if (!lstsq) emit(comp, total);
 }
 
-__device__ __forceinline__ void shapelets_bwd(const float* q, int n_max, bool lstsq, int comp,
-                                              float x, float y, const float* pf, const Cot& cot,
-                                              int off, const Reducer& rd, float& g_x,
-                                              float& g_y) {
-  const float beta = q[0];
-  const float u = (x - q[1]) / beta;
-  const float v = (y - q[2]) / beta;
+// sums: beta, cx, cy, then the sampled amplitudes (its gradients themselves)
+__device__ __forceinline__ void shapelets_bwd(const float* q, const ShapeletK& sk, int n_max,
+                                              bool lstsq, int comp, float x, float y,
+                                              const float* pf, const Cot& cot,
+                                              const SmemAcc& acc, float& g_x, float& g_y) {
+  const float u = (x - sk.cx) * sk.ib;
+  const float v = (y - sk.cy) * sk.ib;
   const float gauss = expf(-(u * u + v * v) / 2.0f);
   float Hu[kShapeletCap + 1], Hv[kShapeletCap + 1];
   float hu[kShapeletCap + 1], hv[kShapeletCap + 1];
@@ -621,7 +629,7 @@ __device__ __forceinline__ void shapelets_bwd(const float* q, int n_max, bool ls
       if (lstsq) {
         w = cot(comp + k);  // cotangent of component k
       } else {
-        rd.add(off + 3 + k, ct * (gauss * hu[n1] * hv[n2]));
+        acc.add(3 + k, ct * (gauss * hu[n1] * hv[n2]));
         w = ct * q[3 + k];
       }
       g_gauss = g_gauss + w * hu[n1] * hv[n2];
@@ -639,11 +647,61 @@ __device__ __forceinline__ void shapelets_bwd(const float* q, int n_max, bool ls
     g_u = g_u + g_hu[n] * pf[n] * 2.0f * (float)n * Hu[n - 1];
     g_v = g_v + g_hv[n] * pf[n] * 2.0f * (float)n * Hv[n - 1];
   }
-  g_x = g_u / beta;
-  g_y = g_v / beta;
-  rd.add(off, -(g_u * u + g_v * v) / beta);
-  rd.add(off + 1, -g_x);
-  rd.add(off + 2, -g_y);
+  g_x = g_u * sk.ib;
+  g_y = g_v * sk.ib;
+  acc.add(0, -(g_u * u + g_v * v) * sk.ib);
+  acc.add(1, -g_x);
+  acc.add(2, -g_y);
+}
+
+// ---------------------------------------------------------------------------
+// the per-sample parts of a stage program
+// ---------------------------------------------------------------------------
+
+template <class K>
+__device__ __forceinline__ const K& slot_as(const float* slots, int k) {
+  static_assert(sizeof(K) <= kSlot * sizeof(float), "stage constants exceed their slot");
+  return *reinterpret_cast<const K*>(slots + k * kSlot);
+}
+
+// Fills stage r's slot from its packed columns q (one thread)
+__device__ inline void stage_consts(const StageRec& r, const float* q, float* slot) {
+  const bool lstsq = r.flags & kFlagLstsq;
+  switch (r.op) {
+    case kEpl: *reinterpret_cast<EplK*>(slot) = epl_consts(q); break;
+    case kNfwE: *reinterpret_cast<NfwEK*>(slot) = nfw_e_consts(q); break;
+    case kSersicE:
+    case kSersic: {
+      float row[7];
+      sersic_row(r.op, q, lstsq, row);
+      *reinterpret_cast<SersicK*>(slot) = sersic_consts(row);
+      break;
+    }
+    case kCoreSersic: *reinterpret_cast<CoreK*>(slot) = core_consts(q, lstsq); break;
+    case kShapelets: *reinterpret_cast<ShapeletK*>(slot) = shapelet_consts(q); break;
+    default: break;  // SIS, Shear, NFW, series: nothing to hoist
+  }
+}
+
+// Maps stage r's sums g to its packed gradient columns out (one thread)
+__device__ inline void stage_epilogue(const StageRec& r, const float* q, const float* g,
+                                      float* out) {
+  const bool lstsq = r.flags & kFlagLstsq;
+  int n_copy = 0;
+  switch (r.op) {
+    case kEpl: epl_epilogue(q, g, out); break;
+    case kNfwE: nfw_e_epilogue(q, g, out); break;
+    case kSersicE:
+    case kSersic: sersic_stage_epilogue(r.op, q, lstsq, g, out); break;
+    case kCoreSersic: core_epilogue(q, lstsq, g, out); break;
+    case kSis: n_copy = 3; break;
+    case kShear: n_copy = 2; break;
+    case kNfw: n_copy = 4; break;
+    case kSeries: n_copy = 2; break;
+    case kShapelets: n_copy = 3 + (lstsq ? 0 : shapelet_count(r.a)); break;
+    default: break;
+  }
+  for (int j = 0; j < n_copy; ++j) out[j] = g[j];
 }
 
 }  // namespace gl

@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from gigalens_tpu_torch.config import SimulatorConfig
+from gigalens_tpu_torch.model import resolve_device
 from gigalens_tpu_torch.prob import distributions as dist
 from gigalens_tpu_torch.prob.prior import Prior
 
@@ -30,9 +31,11 @@ def _map_tree(tree, fn):
     return fn(tree)
 
 
-def tree_to_torch(tree, device="cpu", dtype=torch.float32):
+def tree_to_torch(tree, device=None, dtype=torch.float32):
     """A nested dict/list of arrays (e.g. a reference ``prior.constrain(z)``
-    output) -> the same nesting of tensors on ``device``."""
+    output) -> the same nesting of tensors on ``device`` (``None``: the CUDA
+    card; the CPU only when asked for by name)."""
+    device = resolve_device(device)
     return _map_tree(
         tree, lambda a: torch.tensor(np.asarray(a), dtype=dtype, device=device)
     )
@@ -112,9 +115,9 @@ def sim_config_from_reference(cfg) -> SimulatorConfig:
     )
 
 
-def mvn_from_reference(q_z, device="cpu") -> dist.MultivariateNormalTriL:
+def mvn_from_reference(q_z, device=None) -> dist.MultivariateNormalTriL:
     """The port's MultivariateNormalTriL of a JAX surrogate (``loc`` and
     ``scale_tril`` read as numpy), e.g. to start the port's HMC or SVI from
-    the JAX package's own state."""
+    the JAX package's own state. ``device=None`` means the CUDA card."""
     return dist.MultivariateNormalTriL(np.array(q_z.loc), np.array(q_z.scale_tril),
-                                       device=device)
+                                       device=resolve_device(device))

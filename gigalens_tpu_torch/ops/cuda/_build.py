@@ -36,8 +36,8 @@ FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 SIGNATURES = {
-    # params, x, y, out, ox, oy, bs, npix, niter, save_omega, stream
-    "gl_fused_render_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # params, x, y, out, ox, oy, bs, npix, niter, save_omega, tiles, stream
+    "gl_fused_render_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # params, x, y, ox, oy, ct, partial, grad, bs, npix, niter, stream
     "gl_fused_render_bwd": [_P] * 8 + [_I] * 3 + [_P],
     # x, out, t1 (re, im), z (re, im), u (re, im), 10 factors,
@@ -48,11 +48,11 @@ SIGNATURES = {
     "gl_direct_conv_fwd": [_P] * 4 + [_I] * 11 + [_P],
     "gl_direct_conv_transpose": [_P] * 4 + [_I] * 11 + [_P],
     # params, x, y, extras, out, records, n_mass, n_light, prefactors,
-    # bs, npix, n_cols, summed, stream
-    "gl_fused_builder_fwd": [_P] * 6 + [_I, _I, _P] + [_I] * 4 + [_P],
-    # params, x, y, extras, ct, partial, records, n_mass, n_light,
-    # prefactors, bs, npix, n_cols, summed, stream
-    "gl_fused_builder_bwd": [_P] * 7 + [_I, _I, _P] + [_I] * 4 + [_P],
+    # bs, npix, n_cols, n_sums, summed, stream
+    "gl_fused_builder_fwd": [_P] * 6 + [_I, _I, _P] + [_I] * 5 + [_P],
+    # params, x, y, extras, ct, partial, grad, records, n_mass, n_light,
+    # prefactors, bs, npix, n_cols, n_sums, summed, stream
+    "gl_fused_builder_bwd": [_P] * 8 + [_I, _I, _P] + [_I] * 5 + [_P],
 }
 
 

@@ -14,13 +14,26 @@ a few static ints. For every (sample, pixel) the kernels compute
 * K6 the same kernel in components mode: ``(depth, bs, P)``, one image per
   linear (lstsq) component, for ``LensSimulator.lstsq_simulate``;
 * K7 ``fused_builder_bwd``: the ``(bs, n_cols)`` parameter gradient of
-  either mode, by recompute and the stages' hand-derived VJPs in reverse.
+  either mode, by recompute and the stages' hand-derived VJPs in reverse,
+  with ``fused_builder_bwd_epilogue``, its per-sample second pass.
 
-Beside them, the plain PyTorch twins: :func:`tile_forward_reference` (the
-JAX stage functions line for line, differentiable by torch autograd) and
-:func:`tile_backward_reference` (the hand-derived VJP, line for line with
-``csrc/stages.cuh``). The wrappers take the twins for CPU tensors only; for
-CUDA tensors they launch the kernels or raise.
+All three work in two stages: a per-sample prologue keyed by the stage
+program fills one slot of constants per stage and one series table per EPL
+stage in shared memory, and the pixel stages keep pixel-dependent arithmetic
+only. K7's pixel stage reduces, per stage, cotangents of per-sample
+quantities (:func:`stage_sums` columns) into ``(bs, n_chunks, n_sums)``
+partials; the epilogue kernel sums the chunks in a fixed order and maps each
+stage's sums to its gradient columns (a linear map).
+
+Beside them, the plain PyTorch twins, line for line with
+``csrc/stages.cuh``: :func:`tile_forward_twostage` (K5/K6) and
+:func:`tile_backward_reference` (K7: :func:`bwd_pixel_terms`, then
+:func:`builder_bwd_epilogue`). :func:`fused_builder_reference` (the JAX stage
+functions line for line, differentiable by torch autograd) and
+:func:`tile_backward_onestage` (the hand VJP with nothing hoisted) are the
+one-stage forms: the independent oracles of the tests. The wrappers take the
+twins for CPU tensors only; for CUDA tensors they launch the kernels or
+raise.
 
 Fixed constants are baked as packed columns (broadcast at pack time); their
 gradient columns are computed and dropped by the caller, as in JAX.
@@ -36,6 +49,7 @@ import numpy as np
 import torch
 
 from gigalens_tpu_torch.ops.cuda import _build
+from gigalens_tpu_torch.ops.cuda import fused_render as fr
 from gigalens_tpu_torch.ops.cuda._math import half_angle, half_angle_bwd, powp
 from gigalens_tpu_torch.ops.cuda.fused_render import _sersic_bwd, _sersic_light
 from gigalens_tpu_torch.profiles.mass.epl import _omega_cs_bwd, _omega_cs_impl, omega_cs
@@ -45,10 +59,13 @@ EPL, SIS, SHEAR, NFW, NFW_E, SERIES = 0, 1, 2, 3, 4, 5
 SERSIC_E, SERSIC, CORE_SERSIC, SHAPELETS = 8, 9, 10, 11
 MASS_OPS = frozenset((EPL, SIS, SHEAR, NFW, NFW_E, SERIES))
 
-TILE = 256  # pixels per block of the CUDA kernels (one thread each)
+TILE = 256  # pixels per tile of the CUDA kernels (one thread each)
+TILES_PER_BLOCK = 4  # pixel tiles one block walks
 SHAPELET_CAP = 10  # largest shapelet n_max the kernels take (local H_n arrays)
 MAX_STAGES = 32  # stage records in the kernels' by-value argument struct
-MAX_COLS = 1024  # packed columns (shared-memory staging of params and grads)
+MAX_COLS = 1024  # packed columns (shared-memory staging of the sample's row)
+SLOT = 24  # floats of per-sample constants a stage may hold in shared memory
+MAX_SMEM = 232448  # bytes of shared memory a block may opt in to (H100: 227 KB)
 
 # Launch counts of the kernels; each wrapper adds one where it launches its
 # kernel and nowhere else.
@@ -465,9 +482,14 @@ def fused_builder_reference(spec, params, x, y, extras=(), summed: bool = True):
 
 
 # ---------------------------------------------------------------------------
-# Plain PyTorch twins: the hand-derived VJPs, line for line with stages.cuh
+# The hand-derived VJPs in their one-stage form (every pixel redoes the
+# sample's constants and maps its cotangents to parameter gradients).
 # Mass stages: (g_ax, g_ay) cotangent -> [(column, cotangent)].
 # Light stages: per-output cotangents -> (g_x, g_y, [(column, cotangent)]).
+# :func:`tile_backward_onestage` is the independent oracle the two-stage twin
+# is held against and the function whose operations make K7's bound; no
+# runtime path calls it. The stages with nothing to hoist (SIS, Shear, NFW,
+# the Taylor series) are shared with the two-stage twin below.
 # ---------------------------------------------------------------------------
 
 def _zero(a):
@@ -823,8 +845,8 @@ _LIGHT_BWD = {SERSIC_E: _sersic_e_bwd, SERSIC: _sersic_sph_bwd,
 
 
 @torch.no_grad()
-def tile_backward_reference(spec, params, x, y, extras, ct, summed: bool):
-    """Plain twin of K7: the hand-derived VJP -> (bs, n_cols) gradient.
+def tile_backward_onestage(spec, params, x, y, extras, ct, summed: bool):
+    """The hand-derived VJP in one stage -> (bs, n_cols) gradient.
 
     ``ct`` is (bs, P) for the summed render, (depth, bs, P) for the
     components render. The light stages give parameter cotangents and, at
@@ -858,11 +880,454 @@ def tile_backward_reference(spec, params, x, y, extras, ct, summed: bool):
 
 
 # ---------------------------------------------------------------------------
+# The two-stage form, line for line with csrc/stages.cuh: per stage, what
+# depends on the sample alone (``_CONSTS``), the pixel's forward from those
+# constants (``_MASS_FWD2`` / ``_LIGHT_FWD2``: K5/K6 and K7's recompute), the
+# pixel's VJP as cotangent terms of per-sample quantities (``_MASS_BWD2`` /
+# ``_LIGHT_BWD2``: the stage's sums) and the map from a stage's sums to its
+# packed gradient columns (``_EPILOGUE``, linear in the sums). The EPL and
+# the Sersics are ops/cuda/fused_render.py's, shared with K1-K3.
+# ---------------------------------------------------------------------------
+
+def stage_sums(st: Stage) -> int:
+    """Columns of the sums that stage ``st`` reduces in K7."""
+    if st.op == SHAPELETS:
+        return 3 + (0 if st.lstsq else st.depth)
+    return {EPL: fr.EPL_SUMS, SIS: 3, SHEAR: 2, NFW: 4, NFW_E: 8, SERIES: 2,
+            SERSIC_E: fr.SERSIC_SUMS, SERSIC: fr.SERSIC_SUMS, CORE_SERSIC: 11}[st.op]
+
+
+def sum_offsets(spec):
+    """({stage: first column of its sums}, n_sums), in the kernels' stage
+    order (mass stages first)."""
+    offs, n = {}, 0
+    for st in spec.mass + spec.light:
+        offs[st] = n
+        n += stage_sums(st)
+    return offs, n
+
+
+def _epl_consts2(p, st):
+    te, gam, e1, e2, cx, cy = _cols(p, st.off, 6)
+    return fr.epl_consts(te, gam, e1, e2, cx, cy), fr.series_table(gam, e1, e2, st.niter)
+
+
+def _epl_fwd2(p, st, k, x, y, extras):
+    e, table = k
+    g = fr.epl_pixel(e, x, y)
+    ox, oy = fr.series_fwd(g["cos_t"], g["sin_t"], table[0], st.niter)
+    return (*fr.epl_deflect(e, g, ox, oy), (g, ox, oy))
+
+
+def _epl_bwd2(p, st, k, keep, x, y, extras, g_ax, g_ay):
+    (e, table), (g, ox, oy) = k, keep
+    return fr.epl_bwd_pixel(e, g, ox, oy, g_ax, g_ay, table, st.niter)
+
+
+def _epl_epilogue2(p, st, g):
+    te, _, e1, e2, _, _ = _cols(p, st.off, 6)
+    return fr.epl_epilogue(te, e1, e2, g)
+
+
+def _plain_fwd2(deflect):
+    """A mass stage with nothing to hoist: its one-stage forward."""
+    def fwd(p, st, k, x, y, extras):
+        return (*deflect(p, x, y, st, extras), None)
+    return fwd
+
+
+def _plain_bwd2(bwd):
+    """A mass stage with nothing to hoist: its one-stage VJP, whose
+    parameter cotangents are the stage's sums themselves."""
+    def terms(p, st, k, keep, x, y, extras, g_ax, g_ay):
+        return [g for _, g in bwd(p, x, y, st, extras, g_ax, g_ay)]
+    return terms
+
+
+def _copy_epilogue2(p, st, g):
+    return list(g)
+
+
+def _nfw_e_stretch(e1, e2):
+    m = torch.sqrt(e1**2 + e2**2 + 1e-24)
+    c = torch.clamp(m, max=0.9999)
+    q = (1.0 - c) / (1.0 + c)
+    n1 = 1.0 - q * q
+    d1 = 1.0 + q * q
+    e = torch.abs(n1) / d1
+    return m, c, q, n1, d1, torch.sqrt(1.0 - e), torch.sqrt(1.0 + e)
+
+
+def _nfw_e_consts2(p, st):
+    Rs, alpha_Rs, e1, e2, cx, cy = _cols(p, st.off, 6)
+    cp, sp = half_angle(e1, e2)
+    *_, se1, se2 = _nfw_e_stretch(e1, e2)
+    return dict(cp=cp, sp=sp, se1=se1, se2=se2, Rs=Rs,
+                rho0=alpha_Rs / (4.0 * Rs * Rs * (1.0 - _LOG2)), cx=cx, cy=cy)
+
+
+def _nfw_e_pixel(k, x, y):
+    dx, dy = x - k["cx"], y - k["cy"]
+    xr = dx * k["cp"] + dy * k["sp"]
+    yr = -dx * k["sp"] + dy * k["cp"]
+    xs, ys = xr * k["se1"], yr * k["se2"]
+    return dict(dx=dx, dy=dy, xr=xr, yr=yr, xs=xs, ys=ys, R=torch.sqrt(xs * xs + ys * ys))
+
+
+def _nfw_e_fwd2(p, st, k, x, y, extras):
+    f = _nfw_e_pixel(k, x, y)
+    fx, fy = _nfw_alpha_radial(f["R"], k["Rs"], k["rho0"], f["xs"], f["ys"])
+    fx, fy = fx * k["se1"], fy * k["se2"]
+    return fx * k["cp"] - fy * k["sp"], fx * k["sp"] + fy * k["cp"], None
+
+
+def _nfw_e_bwd2(p, st, k, keep, x, y, extras, g_ax, g_ay):
+    """Sums: Rs (direct), rho0, cos phi, sin phi, se1, se2, dx, dy."""
+    f = _nfw_e_pixel(k, x, y)
+    cp, sp, se1, se2 = k["cp"], k["sp"], k["se1"], k["se2"]
+    fx, fy = _nfw_alpha_radial(f["R"], k["Rs"], k["rho0"], f["xs"], f["ys"])
+    ox, oy = fx * se1, fy * se2
+    # rotation back
+    g_ox = g_ax * cp + g_ay * sp
+    g_oy = -g_ax * sp + g_ay * cp
+    g_cp = g_ax * ox + g_ay * oy
+    g_sp = -g_ax * oy + g_ay * ox
+    # axis stretch of the output
+    g_fx, g_fy = g_ox * se1, g_oy * se2
+    g_se1, g_se2 = g_ox * fx, g_oy * fy
+    g_Rr, g_Rs, g_rho0, g_xs, g_ys = _nfw_radial_bwd(f["R"], k["Rs"], k["rho0"], f["xs"],
+                                                     f["ys"], g_fx, g_fy)
+    g_xs = g_xs + g_Rr * f["xs"]
+    g_ys = g_ys + g_Rr * f["ys"]
+    # axis stretch of the input
+    g_xr, g_yr = g_xs * se1, g_ys * se2
+    g_se1 = g_se1 + g_xs * f["xr"]
+    g_se2 = g_se2 + g_ys * f["yr"]
+    # rotation into the ellipse frame
+    g_cp = g_cp + g_xr * f["dx"] + g_yr * f["dy"]
+    g_sp = g_sp + g_xr * f["dy"] - g_yr * f["dx"]
+    return [g_Rs, g_rho0, g_cp, g_sp, g_se1, g_se2, g_xr * cp - g_yr * sp, g_xr * sp + g_yr * cp]
+
+
+def _nfw_e_epilogue2(p, st, g):
+    Rs, alpha_Rs, e1, e2, _, _ = _cols(p, st.off, 6)
+    m, c, q, n1, d1, se1, se2 = _nfw_e_stretch(e1, e2)
+    g_e = -g[4] * 0.5 / se1 + g[5] * 0.5 / se2
+    g_q = g_e * (torch.sign(n1) * (-2.0 * q) / d1 - torch.abs(n1) * 2.0 * q / (d1 * d1))
+    g_c = -2.0 * g_q / ((1.0 + c) * (1.0 + c))
+    g_m = torch.where(m < 0.9999, g_c, _zero(g_c))
+    g_e1, g_e2 = half_angle_bwd(e1, e2, g[2], g[3])
+    g_Rs, g_aRs = _rho0_bwd(Rs, alpha_Rs, g[1], g[0])
+    return [g_Rs, g_aRs, g_e1 + g_m * e1 / m, g_e2 + g_m * e2 / m, -g[6], -g[7]]
+
+
+def _sersic_row(p, st):
+    """The 7 SersicEllipse columns of a Sersic stage: a spherical Sersic has
+    zero ellipticity, an lstsq stage unit amplitude."""
+    if st.op == SERSIC_E:
+        R_s, n_s, e1, e2, cx, cy = _cols(p, st.off, 6)
+        amp = st.off + 6
+    else:
+        R_s, n_s, cx, cy = _cols(p, st.off, 4)
+        e1 = e2 = torch.zeros_like(R_s)
+        amp = st.off + 4
+    Ie = torch.ones_like(R_s) if st.lstsq else p[:, amp: amp + 1]
+    return R_s, n_s, e1, e2, cx, cy, Ie
+
+
+def _sersic_consts2(p, st):
+    return fr.sersic_consts(*_sersic_row(p, st))
+
+
+def _sersic_fwd2(p, st, k, x, y):
+    return [k["Ie"] * fr.sersic_fwd_pixel(x, y, k)["E"]]
+
+
+def _sersic_bwd2(p, st, k, x, y, cts):
+    return fr.sersic_bwd_pixel(cts[0], x, y, k)
+
+
+def _sersic_epilogue2(p, st, g):
+    _, _, e1, e2, _, _, _ = _sersic_row(p, st)
+    t = fr.sersic_epilogue(e1, e2, g)
+    cols = t[:6] if st.op == SERSIC_E else [t[0], t[1], t[4], t[5]]
+    return cols + ([] if st.lstsq else [t[6]])
+
+
+def _core_consts2(p, st):
+    R_s, n_s, Rb, al, ga, e1, e2, cx, cy = _cols(p, st.off, 9)
+    cp, sp = half_angle(e1, e2)
+    c = torch.sqrt(e1**2 + e2**2 + 1e-24)
+    q = (1.0 - c) / (1.0 + c)
+    sq = torch.sqrt(q)
+    isq = 1.0 / sq
+    lRb, lRs = torch.log(Rb), torch.log(R_s)
+    amp = torch.ones_like(R_s) if st.lstsq else p[:, st.off + 9: st.off + 10]
+    return dict(cp=cp, sp=sp, sq=sq, isq=isq, half_isq=0.5 * isq, cx=cx, cy=cy,
+                bn=1.9992 * n_s - 0.3271, al=al, r=ga / al, k=1.0 / (al * n_s), lRb=lRb,
+                lRs=lRs, P2=torch.exp(al * lRb), P3=torch.exp(al * lRs), amp=amp)
+
+
+def _core_pixel(k, x, y):
+    dx, dy = x - k["cx"], y - k["cy"]
+    a = k["cp"] * dx + k["sp"] * dy
+    bb = -k["sp"] * dx + k["cp"] * dy
+    xt1, xt2 = a * k["sq"], bb * k["isq"]
+    rr = torch.sqrt(xt1 * xt1 + xt2 * xt2)
+    R = torch.clamp(rr, 1e-10, 1e10)
+    lR = torch.log(R)
+    P1 = torch.exp(k["al"] * lR)
+    u = (P1 + k["P2"]) / k["P3"]
+    lbr = k["lRb"] - lR  # log(Rb / R)
+    B = torch.exp(k["al"] * lbr)
+    A = 1.0 + B
+    lA = torch.log(A)
+    F = torch.exp(k["r"] * lA)
+    lu = torch.log(u)
+    W = torch.exp(k["k"] * lu)
+    return dict(dx=dx, dy=dy, a=a, xt1=xt1, xt2=xt2, rr=rr, R=R, lR=lR, P1=P1, u=u, lbr=lbr,
+                B=B, A=A, lA=lA, F=F, lu=lu, W=W, E=torch.exp(-k["bn"] * (W - 1.0)))
+
+
+def _core_fwd2(p, st, k, x, y):
+    g = _core_pixel(k, x, y)
+    return [k["amp"] * (g["F"] * g["E"])]
+
+
+def _core_bwd2(p, st, k, x, y, cts):
+    """Sums: R_s, n_s, Rb, alpha, gamma, cos phi, sin phi, q, dx, dy, Ie."""
+    R_s, n_s, Rb, al, ga = _cols(p, st.off, 5)
+    g = _core_pixel(k, x, y)
+    E, F, W, u, R, B = g["E"], g["F"], g["W"], g["u"], g["R"], g["B"]
+    g_shape = cts[0] * k["amp"]
+    g_F = g_shape * E
+    g_E = g_shape * F
+    g_bn = -g_E * E * (W - 1.0)
+    g_W = -g_E * E * k["bn"]
+    g_k = g_W * W * g["lu"]
+    g_u = g_W * W * k["k"] / u
+    g_al = -g_k * k["k"] / al
+    g_n = -g_k * k["k"] / n_s + 1.9992 * g_bn
+    g_P12 = g_u / k["P3"]  # u = (P1 + P2) / P3
+    g_P3 = -g_u * u / k["P3"]
+    g_al = g_al + g_P12 * g["P1"] * g["lR"] + g_P12 * k["P2"] * k["lRb"] + g_P3 * k["P3"] * k["lRs"]
+    g_R = g_P12 * g["P1"] * al / R
+    g_Rb = g_P12 * k["P2"] * al / Rb
+    g_Rs = g_P3 * k["P3"] * al / R_s
+    g_r = g_F * F * g["lA"]
+    g_B = g_F * F * k["r"] / g["A"]
+    g_ga = g_r / al
+    g_al = g_al - g_r * ga / (al * al) + g_B * B * g["lbr"]
+    g_lbr = g_B * B * al
+    g_Rb = g_Rb + g_lbr / Rb
+    g_R = g_R - g_lbr / R
+    # elliptical radius -> geometry (as the Sersic's, with R's clip band)
+    rr = g["rr"]
+    g_rr = torch.where((rr > 1e-10) & (rr < 1e10), g_R / rr, _zero(g_R))
+    g_xt1 = g_rr * g["xt1"]
+    g_xt2 = g_rr * g["xt2"]
+    g_a = g_xt1 * k["sq"]
+    g_b = g_xt2 * k["isq"]
+    g_x = g_a * k["cp"] - g_b * k["sp"]
+    g_y = g_a * k["sp"] + g_b * k["cp"]
+    dx, dy = g["dx"], g["dy"]
+    g_amp = _zero(g_x) if st.lstsq else cts[0] * F * E
+    terms = [g_Rs, g_n, g_Rb, g_al, g_ga, g_a * dx + g_b * dy, g_a * dy - g_b * dx,
+             (g_xt1 * g["a"] - g_xt2 * g["xt2"] * k["isq"]) * k["half_isq"], g_x, g_y, g_amp]
+    return g_x, g_y, terms
+
+
+def _core_epilogue2(p, st, g):
+    e1, e2 = _cols(p, st.off + 5, 2)
+    c = torch.sqrt(e1**2 + e2**2 + 1e-24)
+    g_c = -2.0 * g[7] / ((1.0 + c) * (1.0 + c))
+    h1, h2 = half_angle_bwd(e1, e2, g[5], g[6])
+    return list(g[:5]) + [h1 + g_c * e1 / c, h2 + g_c * e2 / c, -g[8], -g[9]] + (
+        [] if st.lstsq else [g[10]])
+
+
+def _shapelet_consts2(p, st):
+    beta, cx, cy = _cols(p, st.off, 3)
+    return dict(ib=1.0 / beta, cx=cx, cy=cy)
+
+
+def _shapelet_basis(k, x, y, n_max):
+    u = (x - k["cx"]) * k["ib"]
+    v = (y - k["cy"]) * k["ib"]
+    gauss = torch.exp(-(u * u + v * v) / 2.0)
+    pf = [float(f) for f in shapelet_prefactor(n_max)]
+    Hu, Hv = _hermites(u, n_max), _hermites(v, n_max)
+    return u, v, gauss, pf, Hu, Hv, [f * h for f, h in zip(pf, Hu)], [f * h for f, h in zip(pf, Hv)]
+
+
+def _shapelet_fwd2(p, st, k, x, y):
+    _, _, gauss, _, _, _, hu, hv = _shapelet_basis(k, x, y, st.n_max)
+    comps = [gauss * hu[a] * hv[b] for a, b in _pairs(st.n_max)]
+    if st.lstsq:
+        return comps
+    total = 0.0
+    for j, comp in enumerate(comps):
+        total = total + p[:, st.off + 3 + j: st.off + 4 + j] * comp
+    return [total]
+
+
+def _shapelet_bwd2(p, st, k, x, y, cts):
+    """Sums: beta, center_x, center_y, then the sampled amplitudes."""
+    u, v, gauss, pf, Hu, Hv, hu, hv = _shapelet_basis(k, x, y, st.n_max)
+    g_gauss = 0.0
+    g_hu = [0.0] * (st.n_max + 1)
+    g_hv = [0.0] * (st.n_max + 1)
+    amps = []
+    for j, (n1, n2) in enumerate(_pairs(st.n_max)):
+        if st.lstsq:
+            w = cts[j]  # cotangent of component j
+        else:
+            amps.append(cts[0] * (gauss * hu[n1] * hv[n2]))
+            w = cts[0] * p[:, st.off + 3 + j: st.off + 4 + j]
+        g_gauss = g_gauss + w * hu[n1] * hv[n2]
+        g_hu[n1] = g_hu[n1] + w * gauss * hv[n2]
+        g_hv[n2] = g_hv[n2] + w * gauss * hu[n1]
+    # d H_n / dw = 2 n H_{n-1}
+    g_u = -g_gauss * gauss * u
+    g_v = -g_gauss * gauss * v
+    for n in range(1, st.n_max + 1):
+        g_u = g_u + g_hu[n] * pf[n] * 2.0 * n * Hu[n - 1]
+        g_v = g_v + g_hv[n] * pf[n] * 2.0 * n * Hv[n - 1]
+    g_x, g_y = g_u * k["ib"], g_v * k["ib"]
+    return g_x, g_y, [-(g_u * u + g_v * v) * k["ib"], -g_x, -g_y] + amps
+
+
+def _no_consts(p, st):
+    return None
+
+
+_CONSTS = {EPL: _epl_consts2, NFW_E: _nfw_e_consts2, SERSIC_E: _sersic_consts2,
+           SERSIC: _sersic_consts2, CORE_SERSIC: _core_consts2, SHAPELETS: _shapelet_consts2}
+_MASS_FWD2 = {EPL: _epl_fwd2, SIS: _plain_fwd2(_sis_deflect), SHEAR: _plain_fwd2(_shear_deflect),
+              NFW: _plain_fwd2(_nfw_deflect), NFW_E: _nfw_e_fwd2,
+              SERIES: _plain_fwd2(_series_deflect)}
+_MASS_BWD2 = {EPL: _epl_bwd2, SIS: _plain_bwd2(_sis_bwd), SHEAR: _plain_bwd2(_shear_bwd),
+              NFW: _plain_bwd2(_nfw_bwd), NFW_E: _nfw_e_bwd2, SERIES: _plain_bwd2(_series_bwd)}
+_LIGHT_FWD2 = {SERSIC_E: _sersic_fwd2, SERSIC: _sersic_fwd2, CORE_SERSIC: _core_fwd2,
+               SHAPELETS: _shapelet_fwd2}
+_LIGHT_BWD2 = {SERSIC_E: _sersic_bwd2, SERSIC: _sersic_bwd2, CORE_SERSIC: _core_bwd2,
+               SHAPELETS: _shapelet_bwd2}
+_EPILOGUE = {EPL: _epl_epilogue2, NFW_E: _nfw_e_epilogue2, SERSIC_E: _sersic_epilogue2,
+             SERSIC: _sersic_epilogue2, CORE_SERSIC: _core_epilogue2}
+
+
+def stage_consts(spec, params):
+    """The prologue: {stage: its per-sample constants} (None where a stage
+    has nothing to hoist)."""
+    return {st: _CONSTS.get(st.op, _no_consts)(params, st) for st in spec.stages}
+
+
+def _deflect2(spec, consts, params, x, y, extras):
+    """Total deflection from the stages' constants, and what each mass
+    stage keeps of its forward for its backward (an EPL: its Omega)."""
+    ax = ay = 0.0
+    keep = {}
+    for st in spec.mass:
+        dax, day, keep[st] = _MASS_FWD2[st.op](params, st, consts[st], x, y, extras)
+        ax, ay = ax + dax, ay + day
+    return ax, ay, keep
+
+
+@torch.no_grad()
+def tile_forward_twostage(spec, params, x, y, extras=(), summed: bool = True):
+    """Plain twin of K5 (``summed``: (bs, P)) / K6 ((depth, bs, P)) in the
+    kernels' two stages: :func:`stage_consts`, then the pixel forwards."""
+    if not summed and not spec.all_lstsq:
+        raise ValueError("the components render needs every light stage in lstsq mode")
+    consts = stage_consts(spec, params)
+    ax, ay, _ = _deflect2(spec, consts, params, x, y, extras)
+    bx, by = x - ax, y - ay
+    comps = []
+    for st in spec.light:
+        sx, sy = (bx, by) if st.is_source else (x, y)
+        comps.extend(_LIGHT_FWD2[st.op](params, st, consts[st], sx, sy))
+    comps = [torch.broadcast_to(c, (params.shape[0], x.shape[0])) for c in comps]
+    if not summed:
+        return torch.stack(comps)
+    total = comps[0]
+    for c in comps[1:]:
+        total = total + c
+    return total
+
+
+@torch.no_grad()
+def bwd_pixel_terms(spec, params, x, y, extras, ct, summed: bool):
+    """K7's pixel stage: the n_sums cotangent terms, each broadcastable to
+    (bs, P), in the order of :func:`sum_offsets`; their sums over the pixels
+    go to :func:`builder_bwd_epilogue`. Recomputes the forward (keeping each
+    EPL's Omega), runs the light stages' VJPs, which give at the source a
+    cotangent on beta, then the mass stages' with -ct_beta."""
+    consts = stage_consts(spec, params)
+    ax, ay, keep = _deflect2(spec, consts, params, x, y, extras)
+    bx, by = x - ax, y - ay
+    g_bx = g_by = 0.0
+    comp = 0
+    light = []
+    for st in spec.light:
+        n = st.n_out
+        cts = [ct] * n if summed else [ct[comp + j] for j in range(n)]
+        comp += n
+        sx, sy = (bx, by) if st.is_source else (x, y)
+        g_x, g_y, terms = _LIGHT_BWD2[st.op](params, st, consts[st], sx, sy, cts)
+        light += terms
+        if st.is_source:
+            g_bx, g_by = g_bx + g_x, g_by + g_y
+    mass = []
+    for st in spec.mass:
+        mass += _MASS_BWD2[st.op](params, st, consts[st], keep[st], x, y, extras, -g_bx, -g_by)
+    return mass + light
+
+
+def builder_bwd_epilogue(spec, params, sums):
+    """K7's epilogue: (bs, n_sums) sums of the pixel terms -> (bs, n_cols).
+    Columns no stage owns get 0."""
+    offs, n_sums = sum_offsets(spec)
+    if sums.shape != (params.shape[0], n_sums):
+        raise ValueError(f"sums must be {(params.shape[0], n_sums)}, got {tuple(sums.shape)}")
+    grad = torch.zeros((params.shape[0], spec.n_cols), dtype=params.dtype, device=params.device)
+    for st in spec.stages:
+        g = [sums[:, offs[st] + j: offs[st] + j + 1] for j in range(stage_sums(st))]
+        cols = _EPILOGUE.get(st.op, _copy_epilogue2)(params, st, g)
+        grad[:, st.off: st.off + len(cols)] = torch.cat(cols, dim=-1)
+    return grad
+
+
+@torch.no_grad()
+def tile_backward_reference(spec, params, x, y, extras, ct, summed: bool):
+    """Plain twin of K7 in its two stages: :func:`bwd_pixel_terms`, their
+    sums over the pixels, then :func:`builder_bwd_epilogue` -> (bs, n_cols).
+
+    ``ct`` is (bs, P) for the summed render, (depth, bs, P) for the
+    components render.
+    """
+    shape = (params.shape[0], x.shape[0])
+    terms = bwd_pixel_terms(spec, params, x, y, extras, ct, summed)
+    sums = torch.stack([torch.broadcast_to(t, shape).sum(dim=-1) for t in terms], dim=-1)
+    return builder_bwd_epilogue(spec, params, sums)
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _launch_args(spec, params, x, y, extras, summed):
-    """Validates a launch; returns (bs, npix, extras matrix, records, pf)."""
+def smem_bytes(spec, n_sums: int, bwd: bool) -> int:
+    """Dynamic shared memory of a block (csrc/fused_builder.cu: smem_floats):
+    the packed row, SLOT floats a stage, a series table per EPL stage and,
+    for K7, Omega of each EPL stage and one float per thread per sums column."""
+    n_epl = sum(st.op == EPL for st in spec.mass)
+    floats = -(-spec.n_cols // 4) * 4 + len(spec.stages) * SLOT + n_epl * 4 * fr.MAX_NITER
+    if bwd:
+        floats += n_epl * 2 * TILE + n_sums * TILE
+    return 4 * floats
+
+
+def _launch_args(spec, params, x, y, extras, summed, bwd=False):
+    """Validates a launch; returns (bs, npix, extras matrix, records, pf, n_sums)."""
     if len(spec.stages) > MAX_STAGES:
         raise ValueError(f"{len(spec.stages)} stages exceed the kernels' {MAX_STAGES}")
     if spec.n_cols > MAX_COLS:
@@ -870,8 +1335,17 @@ def _launch_args(spec, params, x, y, extras, summed):
     n_max = max([st.n_max for st in spec.light if st.op == SHAPELETS], default=0)
     if n_max > SHAPELET_CAP:
         raise ValueError(f"shapelet n_max={n_max} exceeds the kernels' cap ({SHAPELET_CAP})")
+    for st in spec.mass:
+        if st.op == EPL and not 1 <= st.niter <= fr.MAX_NITER:
+            raise ValueError(f"niter={st.niter} is outside the kernels' series table "
+                             f"(1..{fr.MAX_NITER})")
     if not summed and not spec.all_lstsq:
         raise ValueError("the components render needs every light stage in lstsq mode")
+    offs, n_sums = sum_offsets(spec)
+    need = smem_bytes(spec, n_sums, bwd)
+    if need > MAX_SMEM:
+        raise ValueError(f"the stage program needs {need} bytes of shared memory a block "
+                         f"({n_sums} sums columns), above the card's {MAX_SMEM}")
     bs, npix = params.shape[0], x.shape[0]
     dev = params.device
     _build.check_arg(params, "params", (bs, spec.n_cols), dev)
@@ -885,18 +1359,20 @@ def _launch_args(spec, params, x, y, extras, summed):
         row_off.append(rows)
         rows += e.shape[0]
     ex = torch.cat(list(extras)) if extras else torch.zeros((1,), device=dev)
-    recs, comp = [], 0
+    recs, comp, n_epl = [], 0, 0
     for st in spec.mass + spec.light:
         a = {EPL: st.niter, SERIES: st.order, SHAPELETS: st.n_max}.get(st.op, 0)
         if st.op == SERIES and st.extra >= len(extras):
             raise ValueError(f"series stage needs extras[{st.extra}]")
-        b = row_off[st.extra] if st.op == SERIES else 0
-        recs += [st.op, st.off, a, b, int(st.lstsq) | (int(st.is_source) << 1), comp]
+        # b: a series stage's first grid row, an EPL stage's series table
+        b = row_off[st.extra] if st.op == SERIES else n_epl if st.op == EPL else 0
+        n_epl += st.op == EPL
+        recs += [st.op, st.off, a, b, int(st.lstsq) | (int(st.is_source) << 1), comp, offs[st]]
         if st.op not in MASS_OPS:
             comp += st.n_out
     recs = (ctypes.c_int * len(recs))(*recs)
     pf = (ctypes.c_float * (SHAPELET_CAP + 1))(*shapelet_prefactor(SHAPELET_CAP))
-    return bs, npix, ex, recs, pf
+    return bs, npix, ex, recs, pf, n_sums
 
 
 def fused_builder_fwd(spec, params, x, y, extras=(), summed: bool = True):
@@ -905,16 +1381,15 @@ def fused_builder_fwd(spec, params, x, y, extras=(), summed: bool = True):
     CPU tensors take the plain twin; CUDA tensors launch the kernel.
     """
     if params.device.type == "cpu":
-        with torch.no_grad():
-            return fused_builder_reference(spec, params, x, y, extras, summed)
-    bs, npix, ex, recs, pf = _launch_args(spec, params, x, y, extras, summed)
+        return tile_forward_twostage(spec, params, x, y, extras, summed)
+    bs, npix, ex, recs, pf, n_sums = _launch_args(spec, params, x, y, extras, summed)
     shape = (bs, npix) if summed else (spec.depth, bs, npix)
     out = torch.empty(shape, dtype=torch.float32, device=params.device)
     lib, ptr = _build.load(), _build.ptr
     with torch.cuda.device(params.device):
         err = lib.gl_fused_builder_fwd(
             ptr(params), ptr(x), ptr(y), ptr(ex), ptr(out), recs, len(spec.mass),
-            len(spec.light), pf, bs, npix, spec.n_cols, int(summed),
+            len(spec.light), pf, bs, npix, spec.n_cols, n_sums, int(summed),
             _build.stream(params.device),
         )
     _build.check(err, "fused_builder_fwd")
@@ -926,22 +1401,21 @@ def fused_builder_bwd(spec, params, x, y, extras, ct, summed: bool = True):
     """K7: (bs, n_cols) parameter gradient. CPU tensors take the plain twin."""
     if params.device.type == "cpu":
         return tile_backward_reference(spec, params, x, y, extras, ct, summed)
-    bs, npix, ex, recs, pf = _launch_args(spec, params, x, y, extras, summed)
+    bs, npix, ex, recs, pf, n_sums = _launch_args(spec, params, x, y, extras, summed, bwd=True)
     _build.check_arg(ct, "ct", (bs, npix) if summed else (spec.depth, bs, npix), params.device)
-    n_tiles = -(-npix // TILE)
-    partial = torch.empty((bs, n_tiles, spec.n_cols), dtype=torch.float32,
-                          device=params.device)
+    n_chunks = -(-npix // (TILE * TILES_PER_BLOCK))
+    partial = torch.empty((bs, n_chunks, n_sums), dtype=torch.float32, device=params.device)
+    grad = torch.empty((bs, spec.n_cols), dtype=torch.float32, device=params.device)
     lib, ptr = _build.load(), _build.ptr
     with torch.cuda.device(params.device):
         err = lib.gl_fused_builder_bwd(
-            ptr(params), ptr(x), ptr(y), ptr(ex), ptr(ct), ptr(partial), recs,
-            len(spec.mass), len(spec.light), pf, bs, npix, spec.n_cols, int(summed),
+            ptr(params), ptr(x), ptr(y), ptr(ex), ptr(ct), ptr(partial), ptr(grad), recs,
+            len(spec.mass), len(spec.light), pf, bs, npix, spec.n_cols, n_sums, int(summed),
             _build.stream(params.device),
         )
     _build.check(err, "fused_builder_bwd")
     launches["fused_builder_bwd"] += 1
-    # second, deterministic pass over the small (bs, n_tiles, n_cols) partials
-    return partial.sum(dim=1)
+    return grad
 
 
 class _FusedBuilder(torch.autograd.Function):

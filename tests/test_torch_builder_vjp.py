@@ -41,7 +41,7 @@ def _model_case(jphys, seed):
     spec = fb.build_spec(phys_model_from_reference(jphys))
     rng = np.random.default_rng(seed)
     params = tree_to_torch(jax.tree_util.tree_map(np.asarray, _rand_params(jphys, BS, rng)),
-                           dtype=F64)
+                           device="cpu", dtype=F64)
     x = torch.tensor(rng.uniform(-2, 2, NPIX))
     y = torch.tensor(rng.uniform(-2, 2, NPIX))
     return spec, spec.pack(params), x, y, rng
@@ -115,8 +115,8 @@ def test_nfw_vjp_at_branch_edges_f64():
         spec = fb.FusedSpec(
             [fb.Stage(op, 0), fb.Stage(fb.SERSIC, n, is_source=True)],
             [("lens_mass", 0, str(i)) for i in range(n)] + [0.5, 2.0, 0.1, -0.1, 100.0])
-        p = torch.tensor([cols + [0.5, 2.0, 0.1, -0.1, 100.0]], dtype=F64)
-        ct = torch.ones((1, x.shape[0]), dtype=F64)
+        p = torch.tensor([cols + [0.5, 2.0, 0.1, -0.1, 100.0]], device="cpu", dtype=F64)
+        ct = torch.ones((1, x.shape[0]), device="cpu", dtype=F64)
         got = fb.tile_backward_reference(spec, p, x, y, (), ct, True)
         assert torch.isfinite(got).all()
         assert _col_rel(got, _autograd(spec, p, x, y, (), ct, True)) <= REL

@@ -66,7 +66,8 @@ def test_pack_layout_matches_jax(name):
         jspec.n_cols, jspec.depth, jspec.all_lstsq, jspec.any_lstsq)
     assert spec.label == jspec.label
     rng = np.random.default_rng(0)
-    params = tree_to_torch(jax.tree_util.tree_map(np.asarray, _rand_params(jphys, BS, rng)))
+    params = tree_to_torch(jax.tree_util.tree_map(np.asarray, _rand_params(jphys, BS, rng)),
+                           device="cpu")
     np.testing.assert_array_equal(spec.pack(params).numpy(), packed)
 
 

@@ -64,7 +64,7 @@ def setup():
 
     out_j = np.asarray(j_fused_render(p_j, jnp.asarray(x), jnp.asarray(y), NITER, True))
     grad_j = np.asarray(jax.grad(loss)(p_j))
-    p_t = fr.pack_params(tree_to_torch(params))
+    p_t = fr.pack_params(tree_to_torch(params, device="cpu"))
     return dict(p_j=np.asarray(p_j), p_t=p_t, x=torch.tensor(x), y=torch.tensor(y),
                 out_j=out_j, grad_j=grad_j)
 
@@ -78,12 +78,16 @@ def test_forward_reference_matches_jax_kernel(setup):
     got = fr.fused_render_reference(setup["p_t"], setup["x"], setup["y"], NITER)
     assert got.shape == (3, 3600)
     np.testing.assert_allclose(got.numpy(), setup["out_j"], rtol=1e-4, atol=2e-3)
-    # the CPU wrapper (K1's twin) and the K2 twin give the same output
+    # the CPU wrapper (K1's twin) and the K2 twin give the same output: the
+    # two-stage form, whose hoisted reciprocals (x * (1 / sqrt q) for
+    # x / sqrt q, ...) move the one-stage image by a few float32 ulp
+    # (measured 1.4e-6 relative)
     k1 = fr.fused_render_fwd(setup["p_t"], setup["x"], setup["y"], NITER)
     k2, ox, oy = fr.fused_render_fwd(setup["p_t"], setup["x"], setup["y"], NITER,
                                      save_omega=True)
-    np.testing.assert_array_equal(k1.numpy(), got.numpy())
-    np.testing.assert_array_equal(k2.numpy(), got.numpy())
+    np.testing.assert_array_equal(k1.numpy(), k2.numpy())
+    np.testing.assert_allclose(k1.numpy(), got.numpy(), rtol=1e-5, atol=0)
+    np.testing.assert_allclose(k1.numpy(), setup["out_j"], rtol=1e-4, atol=2e-3)
     assert ox.shape == oy.shape == (3, 3600)
 
 

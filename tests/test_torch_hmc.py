@@ -305,7 +305,7 @@ def test_hmc_from_jax_surrogate(lens_seq, demo_prior):
     d = demo_prior.d
     start = demo_prior.unconstrain(demo_prior.sample(jax.random.PRNGKey(1), 1))[0]
     q_j = JMultivariateNormalTriL(start, jnp.eye(d) * 1e-3)
-    q = mvn_from_reference(q_j)
+    q = mvn_from_reference(q_j, device="cpu")
     np.testing.assert_array_equal(q.loc.numpy(), np.asarray(start))
     res = lens_seq.HMC(q, n_hmc=8, num_burnin_steps=4, num_results=6, seed=3)
     assert res.samples.shape == (6, 8, d)

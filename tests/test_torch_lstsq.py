@@ -89,7 +89,7 @@ def test_fused_tier_and_render_match_jax(name):
     assert sim._fused_niter == jsim._fused_niter
     assert (sim._fused_spec is None) == (jsim._fused_spec is None)
     assert sim._use_fused and jsim._use_fused
-    tparams = tree_to_torch(_np_tree(params))
+    tparams = tree_to_torch(_np_tree(params), device="cpu")
     if name == "all_lstsq_sersic_pair":
         assert sim._fused_niter is None and sim._fused_spec.all_lstsq
         want = np.asarray(jsim.lstsq_simulate(params, np.ones((20, 20)), np.ones((20, 20)),
@@ -135,7 +135,7 @@ def test_lstsq_simulate_matches_jax(fused):
                         bs=BS, device="cpu")
     assert sim.depth == jsim.depth == 16
     assert (sim._fused_spec is not None) and sim._use_fused == fused
-    tparams = tree_to_torch(_np_tree(params))
+    tparams = tree_to_torch(_np_tree(params), device="cpu")
     want = np.asarray(jsim.lstsq_simulate(params, obs, err, return_stacked=True))
     got = sim.lstsq_simulate(tparams, obs, err, return_stacked=True).numpy()
     assert got.shape == (BS, 20, 20, 16)

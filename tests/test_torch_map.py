@@ -78,7 +78,7 @@ def test_simulate_matches_jax(scene, psf_mode, fused):
     want = np.asarray(JLensSimulator(scene["jphys"], jcfg, bs=BS).simulate(params))
     sim = LensSimulator(scene["tphys"], tcfg, bs=BS, device="cpu")
     assert sim._use_fused == fused
-    got = sim.simulate(tree_to_torch(_np_tree(params))).numpy()
+    got = sim.simulate(tree_to_torch(_np_tree(params), device="cpu")).numpy()
     assert got.shape == (BS, 20, 20)
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=RTOL * np.abs(want).max())
 
@@ -94,14 +94,15 @@ def test_masked_simulate_matches_jax(scene):
     sim = LensSimulator(scene["tphys"], sim_config_from_reference(jcfg), bs=BS, device="cpu")
     assert sim.n_live_pix == jsim.n_live_pix == 140
     assert sim.img_x.shape == (560,)
-    got = sim.simulate(tree_to_torch(_np_tree(params))).numpy()
+    got = sim.simulate(tree_to_torch(_np_tree(params), device="cpu")).numpy()
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=RTOL * np.abs(want).max())
 
 
 def test_source_only_fused_matches_unfused(scene):
     """A source-only model rides the fused twin with the zero-Ie dummy lens light."""
     phys = PhysicalModel([EPL(18), Shear()], [], [SersicEllipse()])
-    params = tree_to_torch(_np_tree(scene["prior"].constrain(jnp.asarray(scene["z"]))))
+    params = tree_to_torch(_np_tree(scene["prior"].constrain(jnp.asarray(scene["z"]))),
+                           device="cpu")
     params = {k: v for k, v in params.items() if k != "lens_light"}
     fused = LensSimulator(phys, dataclasses.replace(scene["tcfg"], use_fused_render=True), bs=BS,
                           device="cpu")

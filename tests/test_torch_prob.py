@@ -52,7 +52,7 @@ def test_constrain_fldj_log_prob(priors, scale):
         rtol=RTOL, atol=1e-4,
     )
     # log_prob on the SAME constrained values (the JAX side's, carried over)
-    xt_j = tree_to_torch(_np_tree(xj))
+    xt_j = tree_to_torch(_np_tree(xj), device="cpu")
     np.testing.assert_allclose(
         tp.log_prob(xt_j).numpy(), np.asarray(jp.log_prob(xj)), rtol=RTOL, atol=1e-4,
     )
@@ -67,7 +67,7 @@ def test_unconstrain_roundtrip(priors):
     z = (np.random.default_rng(2).standard_normal((32, jp.d))).astype(np.float32)
     xj = _np_tree(jp.constrain(jnp.asarray(z)))
     zj = np.asarray(jp.unconstrain(xj))
-    zt = tp.unconstrain(tree_to_torch(xj)).numpy()
+    zt = tp.unconstrain(tree_to_torch(xj, device="cpu")).numpy()
     np.testing.assert_allclose(zt, zj, rtol=RTOL, atol=1e-4)
     np.testing.assert_allclose(zt, z, rtol=1e-3, atol=1e-3)
 

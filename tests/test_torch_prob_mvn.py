@@ -134,7 +134,8 @@ def test_mvn_full_covariance_and_diag_match_jax():
 def test_mvn_from_reference_carries_loc_and_factor():
     rng = np.random.default_rng(4)
     loc, tril = _mvn_params(rng)
-    q = mvn_from_reference(jdist.MultivariateNormalTriL(jnp.asarray(loc), jnp.asarray(tril)))
+    q = mvn_from_reference(jdist.MultivariateNormalTriL(jnp.asarray(loc), jnp.asarray(tril)),
+                           device="cpu")
     assert isinstance(q, tdist.MultivariateNormalTriL)
     np.testing.assert_array_equal(q.loc.numpy(), loc)
     np.testing.assert_array_equal(q.scale_tril.numpy(), tril)

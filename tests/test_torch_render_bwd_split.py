@@ -51,7 +51,7 @@ def setup():
     xs = ((np.arange(60) - 29.5) * 0.0325).astype(np.float32)
     X, Y = np.meshgrid(xs, xs)
     ct = rng.normal(size=(bs, 3600)).astype(np.float32)
-    return dict(p=fr.pack_params(tree_to_torch(params)), x=torch.tensor(X.ravel()),
+    return dict(p=fr.pack_params(tree_to_torch(params, device="cpu")), x=torch.tensor(X.ravel()),
                 y=torch.tensor(Y.ravel()), ct=torch.tensor(ct))
 
 
@@ -114,8 +114,10 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(demo_prior, demo_phys
         pytest.skip("a CUDA device is present: device=None selects it")
     from gigalens_tpu_torch.inference import ModellingSequence
     from gigalens_tpu_torch.inference.sequence import phase_simulator
-    from gigalens_tpu_torch.interop import (phys_model_from_reference, prior_from_reference,
-                                            sim_config_from_reference)
+    from types import SimpleNamespace
+
+    from gigalens_tpu_torch.interop import (mvn_from_reference, phys_model_from_reference,
+                                            prior_from_reference, sim_config_from_reference)
     from gigalens_tpu_torch.model import BackwardProbModel, ForwardProbModel
     from gigalens_tpu_torch.simulator import LensSimulator
 
@@ -128,6 +130,8 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(demo_prior, demo_phys
         lambda: ForwardProbModel(prior, obs, background_rms=0.1, exp_time=100.0),
         lambda: BackwardProbModel(prior, obs, background_rms=0.1, exp_time=100.0),
         lambda: phase_simulator({}, cfg, phys, 1),
+        lambda: tree_to_torch({"a": [np.zeros(2)]}),
+        lambda: mvn_from_reference(SimpleNamespace(loc=np.zeros(2), scale_tril=np.eye(2))),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match='device="cpu"'):
@@ -136,3 +140,6 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(demo_prior, demo_phys
     with pytest.raises(RuntimeError, match='device="cpu"'):
         ModellingSequence(phys, prob, cfg)
     assert ModellingSequence(phys, prob, cfg, device="cpu").device.type == "cpu"
+    assert tree_to_torch({"a": [np.zeros(2)]}, device="cpu")["a"][0].device.type == "cpu"
+    q = mvn_from_reference(SimpleNamespace(loc=np.zeros(2), scale_tril=np.eye(2)), device="cpu")
+    assert q.scale_tril.device.type == "cpu"
