@@ -14,17 +14,20 @@
    the PSF conv at (500, 160, 160) and its transpose at (500, 80, 80)), on
    inputs drawn from the bench prior, and times kernel and twin with CUDA
    events. K4 is checked by both routes: the direct strided sum that the
-   main path takes and the DFT chain it replaced (same inputs, same run),
-   beside one PyTorch call of the same function (F.conv2d and
+   main path takes and the half-spectrum DFT chain (same inputs, same
+   run), beside one PyTorch call of the same function (F.conv2d and
    F.conv_transpose2d, cuDNN with TF32 off: timed only, the port never
-   calls it). K1, K2, K3 and K4-direct must give bitwise-equal results
-   twice; K2's Omega is also held to its float32 twin at OMEGA_TWIN_ATOL.
-   Each kernel's bound is the larger of its operations over the FP32 peak
-   and its bytes over the memory rate (K4's operations are its function's,
-   counted from its shapes and the same for both routes, the renders' by
-   counting the elementwise operations of their plain one-stage versions
-   on the same inputs: the two-stage twins hoist per-sample work, which
-   would lower the count the bound is made of).
+   calls it); the chain is checked again at the shape where PSFConv routes
+   to it (the chain MAP phase's PSF, step 5). K1, K2, K3 and both K4 routes
+   must give bitwise-equal results twice; K2's Omega is also held to its
+   float32 twin at OMEGA_TWIN_ATOL. Each kernel's bound is the larger of
+   its operations over the FP32 peak and its bytes over the memory rate
+   (K4's operations are those of the cheaper of its two algorithms at the
+   row's shape, the direct sum or the half-spectrum chain, counted from
+   shapes and the same for both routes; the renders' by counting the
+   elementwise operations of their plain one-stage versions on the same
+   inputs: the two-stage twins hoist per-sample work, which would lower the
+   count the bound is made of).
 4. Checks the composable render's kernels the same way: K5 (summed) and K7
    at the shapelet-source family's full width (family S: EPL(23)+Shear,
    SersicEllipse lens light, Shapelets(6) source with sampled amplitudes;
@@ -42,8 +45,12 @@
    multi-start Adam (50 steps) from 500 prior draws and best_map_start.
    Then the same for family S (ForwardProbModel, K5/K7 + K4) and family L
    (BackwardProbModel with lstsq_simulate, K6/K7 + K4 over 16 x 500
-   images). Each phase zeroes the launch counters just before it and reads
-   them just after.
+   images), and for the bench scene under a PSF wide enough that PSFConv
+   routes to the DFT chain (the same Gaussian on a larger support; 10
+   steps; K1-K3 and the chain K4 both ways, its launches counted exactly,
+   and one rendered batch held against the float64 FFT convolution). Each
+   phase zeroes the launch counters just before it and reads them just
+   after.
 6. Runs the bench pipeline (gigalens_tpu_torch.bench.run_pipeline, the
    full configuration with HMC seed 2): MAP 500 x 350, FD Laplace, SVI
    1000 x 300, HMC 50 chains x (250 + 750) ChEES, under the bench gates
@@ -61,6 +68,7 @@ nonzero before the ok line. Without a CUDA device it exits nonzero at once.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import subprocess
@@ -110,6 +118,8 @@ FP32_PEAK, HBM_RATE = 67e12, 3.35e12
 
 BS, NUM_PIX, SUPERSAMPLE, DELTA_PIX = 500, 80, 2, 0.065
 MAP_STEPS = 50
+CHAIN_STEPS = 10  # MAP steps of the chain phase
+RENDER_REL = 1e-5  # a rendered batch against the float64 FFT conv, of its max
 FAMILY_NITER, SHAPELET_NMAX, LSTSQ_NMAX = 23, 6, 4
 
 
@@ -190,16 +200,22 @@ def bound(ops, tensors):
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def k4_bound(conv, arg, out):
+def k4_bound(conv, arg, out, transpose):
     """K4's bound (either route, either direction): its function's work,
-    counted from shapes and not from one algorithm's (the direct kernel's
-    padded taps, the chain's DFT products). 2 FP32 operations per
-    multiply-add of the direct sum, out pixels x pooled-kernel taps per
-    sample; bytes of the input, the pooled kernel and the output."""
+    counted from shapes: 2 FP32 operations per multiply-add of the cheaper
+    of its two algorithms at this shape, the direct sum (out pixels x
+    pooled-kernel taps a sample; the direct kernel's padded taps do not
+    count) or the half-spectrum chain; bytes of the input, the pooled
+    kernel and the output."""
     import torch
 
+    from gigalens_tpu_torch.ops.cuda.dft_conv import chain_macs
+    from gigalens_tpu_torch.ops.cuda.direct_conv import direct_macs
+
     kh, kw = conv.kh + conv.pool - 1, conv.kw + conv.pool - 1
-    ops = 2 * arg.shape[0] * conv.out_h * conv.out_w * kh * kw
+    direct = direct_macs(conv.h, conv.w, conv.kh, conv.kw, conv.pool)
+    chain = chain_macs(conv.h, conv.w, conv.kh, conv.kw, conv.pool, transpose)
+    ops = 2 * arg.shape[0] * min(direct, chain)
     return bound(ops, [arg, torch.empty((kh, kw)), out])
 
 
@@ -362,7 +378,16 @@ def kernel_checks():
     print(f"K4: route {conv.route}, pooled kernel {tuple(conv._direct.w_ref.shape)}, "
           f"fshape {conv.fshape}", flush=True)
     rows, lib = direct_checks(conv, xin, ctc, f"bench bs={BS}")
-    kernels += rows + chain_checks(conv, xin, ctc, lib)
+    kernels += rows + chain_checks(conv, xin, ctc, lib, f"bench bs={BS}", "bench")
+    # the chain where PSFConv routes to it: the chain MAP phase's PSF
+    from gigalens_tpu_torch.ops.psf import PSFConv, subgrid_kernel
+
+    ss, native = chain_psf()
+    wide = PSFConv(subgrid_kernel(native, SUPERSAMPLE, odd=True), (conv.h, conv.w), mode="dft",
+                   pool=SUPERSAMPLE, device=dev)
+    if wide.route != "chain" or wide.kh != ss:
+        raise AssertionError(f"a {wide.kh}-px PSF should take the chain, got {wide.route}")
+    kernels += chain_checks(wide, xin, ctc, None, f"{ss}-px PSF bs={BS}", "chain")
     ragged_checks(params, x, y, niter, gen)
     return kernels
 
@@ -462,7 +487,7 @@ def direct_checks(conv, xin, ctc, where):
         del ref
         ms = cuda_ms(lambda: dcv.direct_conv_cuda(arg, d, direction))
         pms = cuda_ms(lambda: plain(arg), reps=2, warmup=1)
-        b_ms, b_by = k4_bound(conv, arg, got)
+        b_ms, b_by = k4_bound(conv, arg, got, direction == "transpose")
         rows.append(dict(name=f"direct_conv {direction} (K4 direct) at {where}",
                          key=f"direct_conv_{direction}", route="cuda",
                          source="gigalens_tpu_torch/csrc/direct_conv.cu",
@@ -475,17 +500,39 @@ def direct_checks(conv, xin, ctc, where):
     return rows, lib
 
 
-def chain_checks(conv, xin, ctc, lib):
-    """K4's DFT chain (csrc/dft_conv.cu), the route for PSFs too large for
-    the direct kernel, on the same inputs: against the float64 einsum twin
-    and the float64 FFT conv, timed beside the direct route's numbers."""
+def library_conv_ms(conv, arg, direction):
+    """Milliseconds of one PyTorch call of K4's function (F.conv2d /
+    F.conv_transpose2d with the pooled kernel, cuDNN without TF32). Timed
+    only: direct_checks holds the same call to the float64 reference at the
+    bench shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from gigalens_tpu_torch.ops.cuda import direct_conv as dcv
+
+    w = torch.as_tensor(dcv.pooled_kernel(conv.kernel, conv.pool), dtype=torch.float32,
+                        device=arg.device)[None, None]
+    oy, _ = dcv.offsets(conv.kh, conv.kw)
+    fn = F.conv2d if direction == "fwd" else F.conv_transpose2d
+    with no_tf32():
+        return cuda_ms(lambda: fn(arg[:, None], w, stride=conv.pool, padding=oy), reps=3,
+                       warmup=1)
+
+
+def chain_checks(conv, xin, ctc, lib, where, phase):
+    """K4's DFT chain (csrc/dft_conv.cu) over half of the spectrum for
+    ``conv``'s kernel and shape, whichever route ``conv`` itself takes:
+    against the float64 einsum twin on the same half-spectrum factors and
+    the float64 FFT conv, bitwise equal over two calls, timed beside the
+    library call (``lib``: {direction: ms}, timed here where None)."""
     import torch
 
     from gigalens_tpu_torch.ops.cuda import dft_conv as dc
     from gigalens_tpu_torch.ops.psf import PSFConv, average_pool, dft_factors
 
     dev, bs = xin.device, xin.shape[0]
-    chain = dc.DFTConv(*dft_factors(conv.kernel, (conv.h, conv.w), conv.pool), device=dev)
+    chain = dc.DFTConv(*dft_factors(conv.kernel, (conv.h, conv.w), conv.pool, half=True),
+                       device=dev)
     fft64 = PSFConv(conv.kernel, (conv.h, conv.w), mode="fft", device=dev)
     rows = []
     # one pallas_call serves both directions (the VJP runs it on the
@@ -496,32 +543,60 @@ def chain_checks(conv, xin, ctc, lib):
         torch.cuda.synchronize()
         m64 = [m.double() for m in mats]
         ref64 = chunked(lambda a: dc.dft_conv_reference(a.double(), m64), bs, 100, arg)
-        r_a, e4 = check_rel(f"K4 chain {direction} vs f64 einsum twin", got, ref64, CONV_REL)
+        r_a, e4 = check_rel(f"K4 chain {direction} vs f64 einsum twin ({where})", got, ref64,
+                            CONV_REL)
         del ref64
         if direction == "fwd":
-            fref = chunked(lambda a: average_pool(fft64(a.double()), SUPERSAMPLE), bs, 100, arg)
+            fref = chunked(lambda a: average_pool(fft64(a.double()), conv.pool), bs, 100, arg)
         else:
             def vjp(a):
                 z = torch.zeros((a.shape[0], conv.h, conv.w), dtype=torch.float64,
                                 device=dev, requires_grad=True)
-                out = average_pool(fft64(z), SUPERSAMPLE)
+                out = average_pool(fft64(z), conv.pool)
                 return torch.autograd.grad(out, z, a.double())[0]
             fref = chunked(vjp, bs, 100, arg)
-        r_b, _ = check_rel(f"K4 chain {direction} vs f64 fft conv", got, fref, CONV_REL)
+        r_b, _ = check_rel(f"K4 chain {direction} vs f64 fft conv ({where})", got, fref, CONV_REL)
         del fref
+        if not torch.equal(got, dc.dft_conv_cuda(arg, mats, direction)):
+            raise AssertionError(f"K4 chain {direction} is not deterministic ({where})")
         ms = cuda_ms(lambda: dc.dft_conv_cuda(arg, mats, direction))
         pms = cuda_ms(lambda: dc.dft_conv_reference(arg, mats))
-        b_ms, b_by = k4_bound(conv, arg, got)  # the same as the direct route's
-        rows.append(dict(name=f"dft_conv {direction} (K4 chain) at bench bs={bs}",
-                         key=f"dft_conv_{direction}", route="cuda",
+        lib_ms = lib[direction] if lib else library_conv_ms(conv, arg, direction)
+        b_ms, b_by = k4_bound(conv, arg, got, direction == "transpose")
+        rows.append(dict(name=f"dft_conv {direction} (K4 chain) at {where}",
+                         key=f"dft_conv_{direction}", phase=phase, route="cuda",
                          source="gigalens_tpu_torch/csrc/dft_conv.cu",
                          replaces="gigalens_tpu/ops/pallas/dft_conv.py:95", max_abs_err=e4,
-                         ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=lib[direction]))
-        print(f"K4 chain {direction}: rel err vs f64 twin {r_a:.3e}, vs f64 fft {r_b:.3e}  "
-              f"kernel {ms:.3f} ms  twin {pms:.3f} ms  bound {b_ms:.3f} ms ({b_by})",
-              flush=True)
+                         ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+        print(f"K4 chain {direction} ({where}): rel err vs f64 twin {r_a:.3e}, vs f64 fft "
+              f"{r_b:.3e}, bitwise repeatable  kernel {ms:.3f} ms  twin {pms:.3f} ms  library "
+              f"{lib_ms:.3f} ms  bound {b_ms:.3f} ms ({b_by})", flush=True)
     return rows
+
+
+def chain_psf():
+    """The chain MAP phase's PSF: the bench's Gaussian (sigma 2 native
+    pixels) on a support wide enough that PSFConv routes to the DFT chain.
+    Supersampled size: 177 px (the direct kernel's shared-memory limit) if
+    the route rule still sends everything below it to the direct kernel,
+    else the smallest odd size the rule sends to the chain plus 20, then
+    the next size up that the rule sends to the chain and whose native
+    kernel, (ss - 1) / 2 pixels wide, has a center pixel. Returns
+    (supersampled size, native kernel)."""
+    import numpy as np
+
+    from gigalens_tpu_torch.ops.cuda.direct_conv import k4_route
+
+    side = NUM_PIX * SUPERSAMPLE
+    first = next(k for k in range(3, 401, 2)
+                 if k4_route(k, k, SUPERSAMPLE, side, side) == "chain")
+    ss = first if first >= 177 else first + 20
+    while ((ss - 1) // 2) % 2 == 0 or k4_route(ss, ss, SUPERSAMPLE, side, side) != "chain":
+        ss += 2
+    n = (ss - 1) // 2
+    c = (n - 1) / 2
+    g = np.exp(-((np.arange(n) - c) ** 2 + (np.arange(n)[:, None] - c) ** 2) / 8.0)
+    return ss, (g / g.sum()).astype(np.float32)
 
 
 def ragged_checks(params, x, y, niter, gen):
@@ -530,7 +605,9 @@ def ragged_checks(params, x, y, niter, gen):
     K1-K3; the direct K4 on 3x40x40 with a 13-px PSF, on 2x170x170 with the
     bench PSF's width (85x85 outputs: neither edge a multiple of the 80x80
     block), and at pools 3 and 1 (its other instantiations); the chain on a
-    40x40 conv with a 9x9 PSF (no GEMM dimension a multiple of 64)."""
+    40x40 conv with a 9x9 PSF (no GEMM dimension a multiple of its tiles)
+    and on 3x42x38 with an 11x7 PSF at pool 1 (rows of 38 and 42 floats: the
+    4-byte copies; a 54 x 23 half spectrum padded to 56 x 24)."""
     import numpy as np
     import torch
 
@@ -574,7 +651,7 @@ def ragged_checks(params, x, y, niter, gen):
         worst.append(f"{n}x{h}x{h}/{kpx}px/pool {pool}: {rf:.1e} / {rt:.1e}")
 
     kern = rng.random((9, 9)).astype(np.float32)
-    factors = dft_factors(kern / kern.sum(), (40, 40), 2)
+    factors = dft_factors(kern / kern.sum(), (40, 40), 2, half=True)
     chain = dc.DFTConv(*factors, device=dev)
     for direction, mats, shape in (("fwd", chain.fwd_mats, (3, 40, 40)),
                                    ("transpose", chain.bwd_mats, (3, 20, 20))):
@@ -582,9 +659,17 @@ def ragged_checks(params, x, y, niter, gen):
         ref = dc.dft_conv_reference(a.double(), [m.double() for m in mats])
         check_rel(f"K4 chain {direction} ragged", dc.dft_conv_cuda(a, mats, direction), ref,
                   CONV_REL)
+    kern = rng.random((11, 7)).astype(np.float32)
+    odd = dc.DFTConv(*dft_factors(kern / kern.sum(), (42, 38), 1, half=True), device=dev)
+    for direction, mats in (("fwd", odd.fwd_mats), ("transpose", odd.bwd_mats)):
+        a = torch.randn((3, 42, 38), generator=gen, device=dev)
+        ref = dc.dft_conv_reference(a.double(), [m.double() for m in mats])
+        check_rel(f"K4 chain {direction} ragged, unaligned rows",
+                  dc.dft_conv_cuda(a, mats, direction), ref, CONV_REL)
     print("ragged shapes: K1-K3 on 3 samples x 1000 px match their float64 twins; K4 direct "
-          "(rel err fwd / transpose) " + "; ".join(worst) + f"; K4 chain on 40x40, fshape "
-          f"{tuple(factors[4].shape)}", flush=True)
+          "(rel err fwd / transpose) " + "; ".join(worst) + f"; K4 chain on 40x40, half "
+          f"spectrum {tuple(factors[4].shape)}, and on 42x38 at pool 1, "
+          f"{tuple(odd.fwd_mats[4].shape)} padded", flush=True)
 
 
 def twin(spec, p, x, y, summed, extras=()):
@@ -871,7 +956,8 @@ def observe(img, gen, bkg=0.2, exp_time=100.0):
 
 def problem(kind):
     """(phys, prob, prior, cfg) of a MAP phase: the bench scene ("bench"),
-    family S ("S": ForwardProbModel) or family L ("L": BackwardProbModel).
+    the bench scene under the chain phase's wide PSF ("chain"), family S
+    ("S": ForwardProbModel) or family L ("L": BackwardProbModel).
     The truth is a seeded prior draw rendered by the port, observed with
     bench.py's noise (family L's amplitudes: a bench-like lens light and
     Normal(0, 50) shapelets)."""
@@ -883,7 +969,9 @@ def problem(kind):
     dev = torch.device("cuda")
     phys, cfg, _ = bench_scene()
     prior = bench_prior()
-    if kind != "bench":
+    if kind == "chain":
+        cfg = dataclasses.replace(cfg, kernel=chain_psf()[1])
+    elif kind != "bench":
         phys, prior = family_model(kind), family_prior(kind)
     gen = torch.Generator(device=dev).manual_seed(42)
     truth = prior.sample(gen, 1)
@@ -916,6 +1004,50 @@ def main_path(steps):
     need = ("fused_render_fwd", "fused_render_fwd_omega", "fused_render_bwd",
             "direct_conv_fwd", "direct_conv_transpose")
     return map_phase("bench", *problem("bench"), steps, check, need)
+
+
+def chain_path(steps):
+    """The bench scene's MAP phase under a PSF wide enough for the DFT chain
+    (K1-K3 and the chain K4 both ways, no direct K4). Before the phase one
+    rendered batch of prior draws is held against the float64 FFT
+    convolution of the same PSF; after it the chain's launches must be
+    exactly the phase's renders: one forward a step plus three to score
+    (step 0, the final log-density, best_map_start) and one transpose a
+    step."""
+    import torch
+
+    from gigalens_tpu_torch.ops.psf import PSFConv, average_pool
+
+    phys, prob, prior, cfg = problem("chain")
+    ss = chain_psf()[0]
+
+    def check(sim):
+        conv = sim._conv
+        if (not sim._use_fused or sim._fused_niter is None or conv is None
+                or conv.mode != "dft" or conv.route != "chain" or conv.kh != ss):
+            raise AssertionError(f"the chain phase's simulator must take K1-K3 and the DFT "
+                                 f"chain at a {ss}-px PSF, got route "
+                                 f"{getattr(conv, 'route', None)}")
+        params = prior.sample(torch.Generator(device=sim.device).manual_seed(5), BS)
+        with torch.no_grad():
+            got = sim.simulate(params)
+            flat = torch.nan_to_num(sim._place(sim._flat_light(params)))
+            fft64 = PSFConv(conv.kernel, (conv.h, conv.w), mode="fft", device=sim.device)
+            want = chunked(lambda a: average_pool(fft64(a.double()), conv.pool), BS, 100,
+                           flat) * sim.conversion_factor
+        rel, _ = check_rel("chain phase render vs f64 fft conv", got, want, RENDER_REL)
+        print(f"MAP chain: PSFConv route {conv.route} at a {ss}-px supersampled PSF (half "
+              f"spectrum {tuple(conv._dft.fwd_mats[4].shape)}); rendered batch vs float64 FFT "
+              f"conv: rel err {rel:.3e}", flush=True)
+
+    need = ("fused_render_fwd_omega", "fused_render_bwd", "dft_conv_fwd", "dft_conv_transpose")
+    counts = map_phase(f"chain ({ss}-px PSF)", phys, prob, prior, cfg, steps, check, need)
+    want = dict(dft_conv_fwd=steps + 3, dft_conv_transpose=steps, direct_conv_fwd=0,
+                direct_conv_transpose=0)
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"chain phase launches {got}, expected {want}")
+    return counts
 
 
 def builder_check(sim):
@@ -1103,7 +1235,8 @@ def main(argv=()):
             print(f"  ptxas: {line.strip()}", flush=True)
     _build.load()
 
-    kernels = [dict(k, phase="bench") for k in kernel_checks()]
+    # kernel_checks' rows belong to the bench MAP phase unless they say otherwise
+    kernels = [dict(dict(phase="bench"), **k) for k in kernel_checks()]
     kernels += builder_checks()
     if "--kernels" in argv:
         # a development aid: no main path ran, so no launch counts and no ok line
@@ -1112,15 +1245,16 @@ def main(argv=()):
                           "kernels": [{k: v for k, v in kern.items() if k not in ("key", "phase")}
                                       for kern in kernels]}))
         return 0
-    counts = {"bench": main_path(MAP_STEPS), "S": family_path("S", MAP_STEPS),
-              "L": family_path("L", MAP_STEPS)}
+    counts = {"bench": main_path(MAP_STEPS), "chain": chain_path(CHAIN_STEPS),
+              "S": family_path("S", MAP_STEPS), "L": family_path("L", MAP_STEPS)}
     pipe, rec = pipeline_phase()
     kernels += pipeline_kernel_checks(pipe)
     counts.update(svi=rec["svi"]["counts"], hmc=rec["hmc"]["counts"])
     # launches: each kernel's count in the phase of its row (K1-K4 the bench
     # scene's MAP, K5 and K7 family S's, K6 and K7-components family L's;
     # the rows at the SVI and HMC shapes the pipeline's SVI and HMC phases;
-    # the chain K4, off the main path at the bench shape, 0)
+    # the chain K4 at the wide PSF the chain MAP phase's, and at the bench
+    # shape, where PSFConv takes the direct route, 0)
     out = [
         {k: v for k, v in dict(kern, launches=counts[kern["phase"]][kern["key"]]).items()
          if k not in ("key", "phase")}

@@ -22,11 +22,13 @@
 // (oy, ox, by, bx, ry, rx) table on the host.
 //
 // What bounds it on the H100: FP32 arithmetic. At the bench shape one
-// direction is 80*80*52*52 = 17.3 M multiply-adds per sample (3.4x fewer
-// than the DFT chain), 17.3 GFLOP at bs = 500 against 51 MB in and 12.8 MB
-// out: 0.26 ms at 67 TFLOP/s, while the bytes need 0.02 ms. The TPU chose
-// the DFT chain for its matrix unit; on this card the direct sum does less
-// work and keeps every intermediate on chip.
+// direction is 80*80*52*52 = 17.3 M multiply-adds per sample (1.7x fewer
+// than the half-spectrum DFT chain of dft_conv.cu), 17.3 GFLOP at bs = 500
+// against 51 MB in and 12.8 MB out: 0.26 ms at 67 TFLOP/s, while the bytes
+// need 0.02 ms. The TPU chose the DFT chain for its matrix unit; on this
+// card the direct sum does less work up to PSFs of ~80 px and keeps every
+// intermediate on chip (the chain takes over above: direct_conv.py,
+// k4_route).
 //
 // Design: a block owns one sample, one output phase and an output tile 80
 // columns wide and 10 rows per warp tall (8 warps at the bench shape). Its

@@ -23,11 +23,33 @@
 // at a time; the pixel stages keep pixel-dependent arithmetic only; a block
 // walks kTilesPerBlock 256-pixel tiles of its sample, which amortises the
 // prologue. Shared memory (smem_floats) is the packed row, kSlot floats a
-// stage, 1 KB a table and, for K7, 2 KB of Omega per EPL stage and 1 KB per
-// sums column; above 48 KB the kernels opt in, and a program that needs more
-// than a block may have (227 KB) is refused. K5/K6 keep one pixel per
-// thread and their store pattern. The ragged pixel edge is masked, never
-// padded.
+// stage, 1 KB a series table, for the summed forward a folded table per
+// shapelet stage and, for K7, 2 KB of Omega per EPL stage and 1 KB per sums
+// column; above 48 KB the kernels opt in, and a program that needs more
+// than a block may have (227 KB) is refused. The ragged pixel edge is
+// masked, never padded.
+//
+// K5/K6's pixel stage is bounded by its instruction count (K5: 0.09 ms of
+// counted FP32 operations against 0.05 ms of bytes at family S; K6 by its
+// 16 output planes, 0.245 ms of writes at family L), so what can leave the
+// pixel leaves it. The shapelet sum of a summed render folds everything
+// per-sample into the prologue: a table a'[i][j] = amp(i, j) pf[i] pf[j]
+// per stage (stages.cuh: shapelet_table), against which the pixel evaluates
+// the raw Hermite rows in a nested sum, gauss * sum_j Hv[j] (sum_i a'[i][j]
+// Hu[i]): one FMA a component and one a row, the row's coefficients read 16
+// bytes at a time (a broadcast); the plain form spends three operations
+// and a 4-byte shared load a component and scales both rows by pf for
+// every pixel. In components mode each component is its own output:
+// the Gaussian goes into one pf-scaled row once and a component costs one
+// multiply before its store. The kernel is instantiated for the shapelet
+// orders that occur (n_max 4 and 6: rows and loops of their true length)
+// beside a generic form for any n_max up to 10, and for summed / components
+// mode, so no mode flag is read in the pixel loop; the C entry point picks
+// the instantiation from the stage program. The Gaussian is one exp2f with
+// the constant folded. K6's planes are written once and read by no block,
+// each warp's store one full 128-byte line: they go out as streaming stores
+// (__stcs), which leaves L2 to the coordinates and tables (1.2% at family
+// L; the kernel then sits at 77% of its bytes bound).
 //
 // K7 recomputes the pixel's forward (the JAX kernel saves no residuals
 // either), keeping each EPL stage's Omega, then runs the light stages'
@@ -74,6 +96,7 @@ struct Smem {
   float* p;
   float* slots;
   float4* tab;
+  float* shp;  // folded shapelet tables (the summed forward only)
   float* om;
   float* acc;
 };
@@ -84,6 +107,7 @@ __host__ __device__ inline size_t smem_floats(const gl::Spec& spec, bool bwd) {
   size_t n = pad4(spec.n_cols) + (size_t)(spec.n_mass + spec.n_light) * gl::kSlot +
              (size_t)spec.n_epl * gl::kMaxNiter * 4;
   if (bwd) n += (size_t)spec.n_epl * 2 * kTile + (size_t)spec.n_sums * kTile;
+  if (!bwd && spec.summed) n += spec.n_shp;
   return n;
 }
 
@@ -92,18 +116,21 @@ __device__ __forceinline__ Smem smem_layout(const gl::Spec& spec, float* base) {
   sm.p = base;
   sm.slots = sm.p + pad4(spec.n_cols);
   sm.tab = reinterpret_cast<float4*>(sm.slots + (spec.n_mass + spec.n_light) * gl::kSlot);
-  sm.om = reinterpret_cast<float*>(sm.tab + spec.n_epl * gl::kMaxNiter);
+  // after the tables: the forward's shapelet tables, or the backward's
+  // Omega and accumulators
+  sm.shp = sm.om = reinterpret_cast<float*>(sm.tab + spec.n_epl * gl::kMaxNiter);
   sm.acc = sm.om + spec.n_epl * 2 * kTile;
   return sm;
 }
 
 // The prologue: the sample's packed row, then each stage's constants (lane
-// 0 of warp k mod 8 takes stage k, so the stages run side by side) and each
-// EPL stage's series table (the whole warp). Ends with the barrier that
-// publishes them.
+// 0 of warp k mod 8 takes stage k, so the stages run side by side), each
+// EPL stage's series table and, for the summed forward (``fold``), each
+// shapelet stage's folded table (the whole warp). Ends with the barrier
+// that publishes them.
 __device__ __forceinline__ void stage_prologue(const gl::Spec& spec,
                                                const float* __restrict__ params, int s,
-                                               const Smem& sm) {
+                                               const Smem& sm, bool fold) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int c = tid; c < spec.n_cols; c += kTile) sm.p[c] = params[(size_t)s * spec.n_cols + c];
   __syncthreads();
@@ -112,6 +139,9 @@ __device__ __forceinline__ void stage_prologue(const gl::Spec& spec,
     if (lane == 0) gl::stage_consts(r, sm.p + r.off, sm.slots + k * gl::kSlot);
     if (r.op == gl::kEpl)
       gl::series_table(sm.p + r.off, r.a, lane, sm.tab + r.b * gl::kMaxNiter);
+    if (fold && r.op == gl::kShapelets)
+      gl::shapelet_table(sm.p + r.off, r.a, r.flags & gl::kFlagLstsq, spec.pf, lane,
+                         sm.shp + r.b);
   }
   __syncthreads();
 }
@@ -147,6 +177,9 @@ __device__ __forceinline__ void mass_fwd(const gl::Spec& spec, int k, const Smem
   }
 }
 
+// NS: the shapelet stages' n_max when the whole program shares one that has
+// an instantiation, else 0 (the generic form); SUMMED: K5, else K6
+template <int NS, bool SUMMED>
 __global__ void __launch_bounds__(kTile)
 fused_builder_fwd(const float* __restrict__ params, const float* __restrict__ xs,
                   const float* __restrict__ ys, const float* __restrict__ ex,
@@ -155,7 +188,8 @@ fused_builder_fwd(const float* __restrict__ params, const float* __restrict__ xs
   extern __shared__ float4 smem4[];
   const Smem sm = smem_layout(spec, reinterpret_cast<float*>(smem4));
   const int s = blockIdx.y;
-  stage_prologue(spec, params, s, sm);
+  stage_prologue(spec, params, s, sm, SUMMED);
+  const size_t plane = (size_t)bs * npix;
   for (int j = 0; j < kTilesPerBlock; ++j) {
     const int i = (blockIdx.x * kTilesPerBlock + j) * kTile + threadIdx.x;
     if (i >= npix) break;
@@ -165,11 +199,18 @@ fused_builder_fwd(const float* __restrict__ params, const float* __restrict__ xs
     for (int k = 0; k < spec.n_mass; ++k) mass_fwd(spec, k, sm, ex, npix, i, x, y, nullptr, ax, ay);
     const float bx = x - ax, by = y - ay;
 
-    gl::Emit emit{out, (size_t)bs * npix, (size_t)s * npix + i, spec.summed != 0, 0.0f};
+    // a light output: added to the pixel's total (K5), or its component's
+    // plane at out[(comp * bs + s) * npix + i] (K6)
+    float total = 0.0f;
+    float* o = out + (size_t)s * npix + i;
+    const auto emit = [&](int comp, float v) {
+      if (SUMMED)
+        total += v;
+      else
+        __stcs(o + comp * plane, v);  // written once, read by no block: streamed past L2
+    };
     for (int k = spec.n_mass; k < spec.n_mass + spec.n_light; ++k) {
       const gl::StageRec r = spec.st[k];
-      const float* q = sm.p + r.off;
-      const bool lstsq = r.flags & gl::kFlagLstsq;
       const bool src = r.flags & gl::kFlagSource;
       const float sx = src ? bx : x, sy = src ? by : y;
       switch (r.op) {
@@ -185,14 +226,18 @@ fused_builder_fwd(const float* __restrict__ params, const float* __restrict__ xs
           emit(r.comp, ck.amp * (g.F * g.E));
           break;
         }
-        case gl::kShapelets:
-          gl::shapelets_fwd(q, gl::slot_as<gl::ShapeletK>(sm.slots, k), r.a, lstsq, r.comp, sx,
-                            sy, spec.pf, emit);
+        case gl::kShapelets: {
+          const gl::ShapeletK& hk = gl::slot_as<gl::ShapeletK>(sm.slots, k);
+          if (SUMMED)
+            total += gl::shapelets_fwd_sum<NS>(hk, sm.shp + r.b, r.a, sx, sy);
+          else
+            gl::shapelets_fwd_components<NS>(hk, r.a, sx, sy, spec.pf, r.comp, emit);
           break;
+        }
         default: break;
       }
     }
-    if (spec.summed) out[(size_t)s * npix + i] = emit.total;
+    if (SUMMED) *o = total;
   }
 }
 
@@ -275,7 +320,7 @@ fused_builder_bwd(const float* __restrict__ params, const float* __restrict__ xs
   const int s = blockIdx.y, tid = threadIdx.x;
   // this thread's accumulators: touched by no other thread until the end
   for (int c = 0; c < spec.n_sums; ++c) sm.acc[c * kTile + tid] = 0.0f;
-  stage_prologue(spec, params, s, sm);
+  stage_prologue(spec, params, s, sm, false);
 
   for (int j = 0; j < kTilesPerBlock; ++j) {
     const int i = (blockIdx.x * kTilesPerBlock + j) * kTile + tid;
@@ -347,6 +392,13 @@ bool make_spec(gl::Spec& spec, const int* recs, int n_mass, int n_light, const f
     if (r.b != spec.n_epl || r.a < 1 || r.a > gl::kMaxNiter) return false;
     ++spec.n_epl;
   }
+  for (int k = n_mass; k < n_mass + n_light; ++k) {
+    const gl::StageRec& r = spec.st[k];
+    if (r.op != gl::kShapelets) continue;
+    // its folded table starts where the tables before it end
+    if (r.b != spec.n_shp || r.a < 0 || r.a > gl::kShapeletCap) return false;
+    spec.n_shp += gl::shapelet_table_floats(r.a);
+  }
   return true;
 }
 
@@ -360,6 +412,40 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 
 int chunks(int npix) { return (npix + kTile * kTilesPerBlock - 1) / (kTile * kTilesPerBlock); }
 
+// The n_max every shapelet stage of the program shares, if it has an
+// instantiation of its own (4, 6), else 0: the generic form
+int shapelet_order(const gl::Spec& spec) {
+  int ns = -1;
+  for (int k = spec.n_mass; k < spec.n_mass + spec.n_light; ++k) {
+    if (spec.st[k].op != gl::kShapelets) continue;
+    if (ns >= 0 && spec.st[k].a != ns) return 0;
+    ns = spec.st[k].a;
+  }
+  return ns == 4 || ns == 6 ? ns : 0;
+}
+
+template <int NS, bool SUMMED>
+cudaError_t launch_fwd(const float* params, const float* x, const float* y, const float* ex,
+                       float* out, const gl::Spec& spec, int bs, int npix, cudaStream_t st) {
+  const auto kernel = fused_builder_fwd<NS, SUMMED>;
+  const size_t shm = sizeof(float) * smem_floats(spec, false);
+  const cudaError_t err = allow_smem(kernel, shm);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(chunks(npix), bs), kTile, shm, st>>>(params, x, y, ex, out, spec, bs, npix);
+  return cudaGetLastError();
+}
+
+template <bool SUMMED>
+cudaError_t launch_fwd_order(int ns, const float* params, const float* x, const float* y,
+                             const float* ex, float* out, const gl::Spec& spec, int bs, int npix,
+                             cudaStream_t st) {
+  switch (ns) {
+    case 4: return launch_fwd<4, SUMMED>(params, x, y, ex, out, spec, bs, npix, st);
+    case 6: return launch_fwd<6, SUMMED>(params, x, y, ex, out, spec, bs, npix, st);
+    default: return launch_fwd<0, SUMMED>(params, x, y, ex, out, spec, bs, npix, st);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -370,12 +456,10 @@ int gl_fused_builder_fwd(const float* params, const float* x, const float* y, co
   gl::Spec spec;
   if (!make_spec(spec, recs, n_mass, n_light, pf, n_cols, n_sums, summed))
     return (int)cudaErrorInvalidValue;
-  const size_t shm = sizeof(float) * smem_floats(spec, false);
-  const cudaError_t err = allow_smem(fused_builder_fwd, shm);
-  if (err != cudaSuccess) return (int)err;
-  fused_builder_fwd<<<dim3(chunks(npix), bs), kTile, shm, static_cast<cudaStream_t>(stream)>>>(
-      params, x, y, ex, out, spec, bs, npix);
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int ns = shapelet_order(spec);
+  if (summed) return (int)launch_fwd_order<true>(ns, params, x, y, ex, out, spec, bs, npix, st);
+  return (int)launch_fwd_order<false>(ns, params, x, y, ex, out, spec, bs, npix, st);
 }
 
 // partial: (bs, n_chunks, n_sums) scratch; grad: (bs, n_cols)

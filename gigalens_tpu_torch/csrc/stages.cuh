@@ -36,8 +36,8 @@ constexpr int kSlot = 24;          // floats of per-sample constants a stage may
 
 // One stage record: opcode, first packed column, a = EPL niter | series
 // order | shapelet n_max, b = EPL: index of its series table | series:
-// its grid's first row in the extras matrix, flags, first output component,
-// first column of its sums.
+// its grid's first row in the extras matrix | shapelets: first float of its
+// folded table, flags, first output component, first column of its sums.
 struct StageRec {
   int op, off, a, b, flags, comp, soff;
 };
@@ -46,6 +46,7 @@ struct Spec {
   StageRec st[kMaxStages];  // mass stages first, then light stages
   float pf[kShapeletCap + 1];  // shapelet prefactors 1/sqrt(2^n sqrt(pi) n!)
   int n_mass, n_light, n_cols, n_sums, n_epl, summed;
+  int n_shp;  // floats of the folded shapelet tables (summed forward only)
 };
 
 // K7's accumulator: each thread owns one float of every sums column, laid
@@ -56,21 +57,6 @@ struct Spec {
 struct SmemAcc {
   float* base;  // this thread's float of the stage's first column
   __device__ __forceinline__ void add(int k, float v) const { base[k * kBuilderTile] += v; }
-};
-
-// Where K5/K6 put each light output: summed into one value, or one image
-// per component at out[(comp * bs + s) * npix + i].
-struct Emit {
-  float* out;
-  size_t stride, base;
-  bool summed;
-  float total;
-  __device__ __forceinline__ void operator()(int comp, float v) {
-    if (summed)
-      total += v;
-    else
-      out[comp * stride + base] = v;
-  }
 };
 
 // A light output's cotangent in K7: the shared (bs, P) cotangent of the
@@ -565,36 +551,141 @@ __device__ __forceinline__ int shapelet_count(int n_max) {
   return (n_max + 1) * (n_max + 2) / 2;
 }
 
-__device__ __forceinline__ void shapelets_fwd(const float* q, const ShapeletK& sk, int n_max,
-                                              bool lstsq, int comp, float x, float y,
-                                              const float* pf, Emit& emit) {
+// The forward's shapelet stage, in two forms. NS > 0 says that n_max == NS
+// is known at compile time (rows and loops have their true length); NS == 0
+// is the generic form for any n_max up to kShapeletCap, bounded at run time.
+template <int NS>
+struct ShapeletDim {
+  static constexpr int cap = NS > 0 ? NS : kShapeletCap;
+};
+
+// -log2(e) / 2: exp(-(u^2 + v^2) / 2) = exp2(kNegHalfLog2e (u^2 + v^2)). exp2f
+// is the hardware's ex2 and little else, where expf first splits its
+// argument; it is good to 2 ulp, so the twin (torch.exp2, correctly rounded)
+// follows it to a few 1e-7 of the Gaussian and not bit for bit. The
+// Sersics keep expf/logf: lens_math.cuh's pixel functions are shared with
+// K1-K3, whose image bits this file does not move.
+constexpr float kNegHalfLog2e = -0.72134752044448170f;
+
+template <int NS>
+__device__ __forceinline__ void hermite_row(float w, int n_max,
+                                            float (&H)[ShapeletDim<NS>::cap + 1]) {
+  static_assert(ShapeletDim<NS>::cap >= 1, "a specialised n_max is at least 1");
+  H[0] = 1.0f;
+  H[1] = 2.0f * w;
+#pragma unroll
+  for (int n = 1; n < ShapeletDim<NS>::cap; ++n) {
+    if (NS == 0 && n >= n_max) break;
+    H[n + 1] = 2.0f * (w * H[n] - (float)n * H[n - 1]);
+  }
+}
+
+// The folded table of a summed shapelet stage: row j holds a'[i][j] =
+// amp(i, j) pf[i] pf[j] for i = 0 .. n_max - j (amp(i, j): the amplitude of
+// component (n1, n2) = (i, j); 1 for an lstsq stage summed with unit
+// amplitudes), rows padded to a float4 so a row is read 16 bytes at a time.
+__host__ __device__ inline int shapelet_row_floats(int n_max, int j) {
+  return (n_max - j + 1 + 3) & ~3;
+}
+
+__host__ __device__ inline int shapelet_table_floats(int n_max) {
+  int n = 0;
+  for (int j = 0; j <= n_max; ++j) n += shapelet_row_floats(n_max, j);
+  return n;
+}
+
+// Fills a stage's table (one warp; lane l takes components l, l + 32, ...)
+__device__ inline void shapelet_table(const float* q, int n_max, bool lstsq, const float* pf,
+                                      int lane, float* tab) {
+  for (int k = lane; k < shapelet_count(n_max); k += 32) {
+    int N = 0;
+    while ((N + 1) * (N + 2) / 2 <= k) ++N;
+    const int j = k - N * (N + 1) / 2, i = N - j;
+    int off = 0;
+    for (int jj = 0; jj < j; ++jj) off += shapelet_row_floats(n_max, jj);
+    const float amp = lstsq ? 1.0f : q[3 + k];
+    tab[off + i] = (amp * pf[i]) * pf[j];
+  }
+}
+
+// Summed mode: gauss * sum_j Hv[j] * (sum_i a'[i][j] Hu[i]) on the raw
+// Hermite rows: one FMA a component and one a row, the Gaussian applied once
+template <int NS>
+__device__ __forceinline__ float shapelets_fwd_sum(const ShapeletK& sk, const float* tab,
+                                                   int n_max, float x, float y) {
+  constexpr int cap = ShapeletDim<NS>::cap;
   const float u = (x - sk.cx) * sk.ib;
   const float v = (y - sk.cy) * sk.ib;
-  const float gauss = expf(-(u * u + v * v) / 2.0f);
-  float hu[kShapeletCap + 1], hv[kShapeletCap + 1];
-  hermites(u, n_max, hu);
-  hermites(v, n_max, hv);
+  const float gauss = exp2f(kNegHalfLog2e * (u * u + v * v));
+  float Hu[cap + 1], Hv[cap + 1];
+  hermite_row<NS>(u, n_max, Hu);
+  hermite_row<NS>(v, n_max, Hv);
+  float total = 0.0f;
+  if constexpr (NS > 0) {
+    int off = 0;  // known at compile time once the loops are unrolled
 #pragma unroll
-  for (int n = 0; n <= kShapeletCap; ++n) {
-    hu[n] = pf[n] * hu[n];
+    for (int j = 0; j <= cap; ++j) {
+      float t = 0.0f;
+#pragma unroll
+      for (int i4 = 0; i4 <= cap - j; i4 += 4) {
+        const float4 c4 = *reinterpret_cast<const float4*>(tab + off + i4);
+        const float c[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (i4 + e <= cap - j) t = fmaf(c[e], Hu[i4 + e], t);
+      }
+      total = fmaf(Hv[j], t, total);
+      off += shapelet_row_floats(cap, j);
+    }
+  } else {
+    int off = 0;
+#pragma unroll
+    for (int j = 0; j <= cap; ++j) {
+      if (j > n_max) break;
+      float t = 0.0f;
+#pragma unroll
+      for (int i = 0; i <= cap - j; ++i) {
+        if (i > n_max - j) break;
+        t = fmaf(tab[off + i], Hu[i], t);
+      }
+      total = fmaf(Hv[j], t, total);
+      off += shapelet_row_floats(n_max, j);
+    }
+  }
+  return gauss * total;
+}
+
+// Components mode: every component is an output of its own, so there is no
+// amplitude to fold; the pf-scaled rows, the Gaussian multiplied into one of
+// them once, and one multiply a component before its store (triangular
+// order: by total order N, then (n1, n2) = (N - j, j))
+template <int NS, class Store>
+__device__ __forceinline__ void shapelets_fwd_components(const ShapeletK& sk, int n_max, float x,
+                                                         float y, const float* pf, int comp,
+                                                         const Store& store) {
+  constexpr int cap = ShapeletDim<NS>::cap;
+  const float u = (x - sk.cx) * sk.ib;
+  const float v = (y - sk.cy) * sk.ib;
+  const float gauss = exp2f(kNegHalfLog2e * (u * u + v * v));
+  float hu[cap + 1], hv[cap + 1];
+  hermite_row<NS>(u, n_max, hu);
+  hermite_row<NS>(v, n_max, hv);
+#pragma unroll
+  for (int n = 0; n <= cap; ++n) {
+    if (NS == 0 && n > n_max) break;
+    hu[n] = (pf[n] * hu[n]) * gauss;
     hv[n] = pf[n] * hv[n];
   }
-  float total = 0.0f;
   int k = 0;
 #pragma unroll
-  for (int N = 0; N <= kShapeletCap; ++N) {
-    if (N > n_max) break;
+  for (int N = 0; N <= cap; ++N) {
+    if (NS == 0 && N > n_max) break;
 #pragma unroll
     for (int j = 0; j <= N; ++j) {
-      const float c = gauss * hu[N - j] * hv[j];
-      if (lstsq)
-        emit(comp + k, c);
-      else
-        total = total + q[3 + k] * c;
+      store(comp + k, hu[N - j] * hv[j]);
       ++k;
     }
   }
-  if (!lstsq) emit(comp, total);
 }
 
 // sums: beta, cx, cy, then the sampled amplitudes (its gradients themselves)

@@ -14,6 +14,7 @@ the Jacobian factor is added, as in the JAX package.
 from __future__ import annotations
 
 import math
+import types
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -83,7 +84,35 @@ class PhysicalModel(VersionedAttrs):
         self.source_light_constants = _conv(source_light_constants, source_light)
 
 
-class ForwardProbModel(VersionedAttrs):
+class _SamplerFacade:
+    """What the inference routines read off a probabilistic model besides its
+    log-density, as in the JAX package: the likelihood terms it includes
+    (the SMC selector reads them; pixels only until the position likelihood
+    is ported), ``init_centroids``, ``log_prior`` and ``bij``."""
+
+    include_pixels = True
+    include_positions = False
+    n_position = 0
+
+    def init_centroids(self, bs):
+        """API-compatible no-op: batch-leading broadcasting needs no
+        per-batch centroid arrays."""
+        return None
+
+    def log_prior(self, z):
+        """Unconstrained log prior of z (bs, d), Jacobian included."""
+        return self.prior.log_prob_z(z)
+
+    @property
+    def bij(self):
+        """Facade of the reference's bijector: ``bij.forward`` is
+        ``prior.constrain``, ``bij.inverse`` on a constrained tree is
+        ``prior.unconstrain``."""
+        return types.SimpleNamespace(forward=self.prior.constrain,
+                                     inverse=self.prior.unconstrain)
+
+
+class ForwardProbModel(VersionedAttrs, _SamplerFacade):
     """Forward-modeled pixel likelihood.
 
     ``observed_image`` and the noise settings are stored as float32 tensors
@@ -165,7 +194,7 @@ class ForwardProbModel(VersionedAttrs):
         return self.stats_pixels(simulator, self.prior.constrain(z))[0]
 
 
-class BackwardProbModel(VersionedAttrs):
+class BackwardProbModel(VersionedAttrs, _SamplerFacade):
     """Likelihood with observed-image noise and lstsq linear amplitudes
     (pixels only: its position likelihood raises, as in JAX)."""
 

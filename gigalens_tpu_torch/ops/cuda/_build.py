@@ -41,7 +41,7 @@ SIGNATURES = {
     # params, x, y, ox, oy, ct, partial, grad, bs, npix, niter, stream
     "gl_fused_render_bwd": [_P] * 8 + [_I] * 3 + [_P],
     # x, out, t1 (re, im), z (re, im), u (re, im), 10 factors,
-    # bs, H, W, fh, fw, oh, ow, stream
+    # bs, H, W, fh, hw (spectral columns), oh, ow, stream
     "gl_dft_conv": [_P] * 18 + [_I] * 7 + [_P],
     # x (or ct), out, w, phase table, bs, H, W, pool, KH, KW, warps, HH, PW,
     # LDp, smem, stream (H, W: the image's size in both directions)

@@ -23,7 +23,8 @@ writes one to each (m mod p, n mod p) phase of its output. One kernel
 :func:`direct_conv_reference` and :func:`direct_conv_transpose_reference`
 are the plain versions, written as explicit tap sums; the wrappers take them
 for CPU tensors only. :func:`k4_route` is the shape rule that sends a
-``PSFConv`` on the card to this kernel or to the DFT chain.
+``PSFConv`` on the card to this kernel (the smaller PSFs) or to the
+half-spectrum DFT chain.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from gigalens_tpu_torch.ops.cuda import _build
+from gigalens_tpu_torch.ops.cuda.dft_conv import chain_macs
 
 # Launch counts per direction; each wrapper adds one where it launches.
 launches = {"direct_conv_fwd": 0, "direct_conv_transpose": 0}
@@ -39,9 +41,9 @@ launches = {"direct_conv_fwd": 0, "direct_conv_transpose": 0}
 # Block shape of the kernel: 16 column lanes x 5 adjacent columns = 80
 # output columns; each warp holds 2 row lanes x 5 rows = 10 output rows.
 TILE_W, ROWS_PER_WARP, ROWS_PER_THREAD = 80, 10, 5
-# Below 4 warps a block the forward loses to the DFT chain (on an H100 at bs
-# 500, 160x160: 13.1 ms with 2 warps against the chain's 6.9 at 177 px, 6.1
-# with 4 against 6.9 at 175 px; scripts/torch_k4_routes.py).
+# A block of fewer than 4 warps is never planned: at 2 warps the forward
+# took twice its 4-warp time (13.1 against 6.1 ms around 176 px on an H100 at
+# bs 500, 160x160; scripts/torch_k4_routes.py).
 MAX_WARPS, MIN_WARPS = 8, 4
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on sm_90
 
@@ -194,15 +196,35 @@ def plan(ku: int, kv: int, n_in: int, oh: int):
     return None
 
 
-def k4_route(kh, kw, pool) -> str:
-    """"direct" when both directions of the direct kernel fit a block of
-    MIN_WARPS warps in shared memory (PSFs up to 175 px at pool 2), else
-    "chain" (the DFT chain). A pure shape rule: nothing is tried at run
-    time. The image size does not enter: a short image only lowers the
-    warps per block, and the smallest block is always tried."""
+def direct_macs(h, w, kh, kw, pool) -> int:
+    """Multiply-adds a sample of the direct sum, either direction: output
+    pixels times the pooled kernel's taps."""
+    return (h // pool) * (w // pool) * (kh + pool - 1) * (kw + pool - 1)
+
+
+# T multiply-adds a second each K4 kernel sustains of what it executes, both
+# directions together, on an H100 at bs 500, 160x160 (scripts/
+# torch_k4_routes.py): the direct kernel 18.2-18.9 from 75 px up (16.4 at 51
+# px), the chain 16.7 up to 91 px and 17.5-18.0 above
+DIRECT_RATE, CHAIN_RATE = 18.3, 17.2
+
+
+def k4_route(kh, kw, pool, h, w) -> str:
+    """The K4 kernel for a (kh, kw) PSF on (h, w) images: "direct" where the
+    direct sum's multiply-adds take no longer at DIRECT_RATE than those the
+    half-spectrum DFT chain executes with its tiles take at CHAIN_RATE, both
+    directions together (and only where both directions of the direct
+    kernel fit a block of MIN_WARPS warps in shared memory, which holds to
+    175 px at pool 2), else "chain". A pure shape rule, nothing is tried at
+    run time; the two rates are its measurement. On 160x160 images at pool 2
+    it names the faster route at every size timed (51-261 px): direct to 79
+    px and again at 95-103 px, where the spectrum has just spilled into
+    another tile of columns, the chain elsewhere."""
     ku, kv = _sub_shape(kh, kw, pool)
     fits = plan(ku, kv, pool * pool, 1) is not None and plan(ku, kv, 1, 1) is not None
-    return "direct" if fits else "chain"
+    chain = sum(chain_macs(h, w, kh, kw, pool, transpose=t, tiles=True) for t in (False, True))
+    direct = 2 * direct_macs(h, w, kh, kw, pool)
+    return "direct" if fits and direct / DIRECT_RATE <= chain / CHAIN_RATE else "chain"
 
 
 def direct_conv_cuda(x, conv: "DirectConv", direction: str):

@@ -18,12 +18,15 @@ a few static ints. For every (sample, pixel) the kernels compute
   with ``fused_builder_bwd_epilogue``, its per-sample second pass.
 
 All three work in two stages: a per-sample prologue keyed by the stage
-program fills one slot of constants per stage and one series table per EPL
-stage in shared memory, and the pixel stages keep pixel-dependent arithmetic
-only. K7's pixel stage reduces, per stage, cotangents of per-sample
-quantities (:func:`stage_sums` columns) into ``(bs, n_chunks, n_sums)``
-partials; the epilogue kernel sums the chunks in a fixed order and maps each
-stage's sums to its gradient columns (a linear map).
+program fills one slot of constants per stage, one series table per EPL
+stage and, for the summed forward, one folded coefficient table per
+shapelet stage (amplitude times both prefactors, so the pixel's shapelet
+sum is a nested sum over raw Hermite rows: one FMA a component) in shared
+memory, and the pixel stages keep pixel-dependent arithmetic only. K7's
+pixel stage reduces, per stage, cotangents of per-sample quantities
+(:func:`stage_sums` columns) into ``(bs, n_chunks, n_sums)`` partials; the
+epilogue kernel sums the chunks in a fixed order and maps each stage's sums
+to its gradient columns (a linear map).
 
 Beside them, the plain PyTorch twins, line for line with
 ``csrc/stages.cuh``: :func:`tile_forward_twostage` (K5/K6) and
@@ -167,7 +170,8 @@ class FusedSpec:
 
 def build_spec(phys_model) -> Optional[FusedSpec]:
     """A FusedSpec for ``phys_model``, or None where the JAX builder gives
-    None: a profile with no stage, mixed lstsq and sampled amplitudes, or
+    None: a multi-plane model (``mp_factors`` set: the stages ray-shoot one
+    plane), a profile with no stage, mixed lstsq and sampled amplitudes, or
     no light profile. (The Taylor-series stage exists, but its profile,
     ``MassSeries``, is not ported yet: ROADMAP M15.)"""
     from gigalens_tpu_torch.profiles.light.sersic import CoreSersic, Sersic, SersicEllipse
@@ -179,6 +183,8 @@ def build_spec(phys_model) -> Optional[FusedSpec]:
     from gigalens_tpu_torch.profiles.mass.sie import SIE
     from gigalens_tpu_torch.profiles.mass.sie import SIS as SISProfile
 
+    if getattr(phys_model, "mp_factors", None) is not None:
+        return None
     pack_cols: list = []
     stages: list = []
     names = []
@@ -1146,9 +1152,29 @@ def _core_epilogue2(p, st, g):
         [] if st.lstsq else [g[10]])
 
 
+# -log2(e) / 2: exp(-r^2 / 2) = exp2(c r^2). A float32 tensor takes it
+# rounded to float32, the kernels' constant; a float64 one takes it whole.
+_NEG_HALF_LOG2E = -0.5 * math.log2(math.e)
+
+
+def shapelet_table_floats(n_max: int) -> int:
+    """Floats of a shapelet stage's folded table in shared memory: row j
+    holds n_max - j + 1 coefficients, padded to a float4
+    (csrc/stages.cuh: shapelet_table_floats)."""
+    return sum(-(-(n_max - j + 1) // 4) * 4 for j in range(n_max + 1))
+
+
 def _shapelet_consts2(p, st):
+    """1 / beta, the center and the folded table a'[i][j] = amp(i, j) pf[i]
+    pf[j] of the summed forward (amp(i, j): the amplitude of component
+    (n1, n2) = (i, j); 1 for an lstsq stage summed with unit amplitudes)."""
     beta, cx, cy = _cols(p, st.off, 3)
-    return dict(ib=1.0 / beta, cx=cx, cy=cy)
+    pf = [float(f) for f in shapelet_prefactor(st.n_max)]
+    table = {}
+    for j, (n1, n2) in enumerate(_pairs(st.n_max)):
+        amp = torch.ones_like(beta) if st.lstsq else p[:, st.off + 3 + j: st.off + 4 + j]
+        table[n1, n2] = (amp * pf[n1]) * pf[n2]
+    return dict(ib=1.0 / beta, cx=cx, cy=cy, table=table)
 
 
 def _shapelet_basis(k, x, y, n_max):
@@ -1160,15 +1186,36 @@ def _shapelet_basis(k, x, y, n_max):
     return u, v, gauss, pf, Hu, Hv, [f * h for f, h in zip(pf, Hu)], [f * h for f, h in zip(pf, Hv)]
 
 
+def _shapelet_rows(k, x, y, n_max):
+    """The forward's pixel quantities: the Gaussian as one exp2 and the raw
+    Hermite rows (csrc/stages.cuh: shapelets_fwd_sum / _components)."""
+    u = (x - k["cx"]) * k["ib"]
+    v = (y - k["cy"]) * k["ib"]
+    gauss = torch.exp2(_NEG_HALF_LOG2E * (u * u + v * v))
+    return gauss, _hermites(u, n_max), _hermites(v, n_max)
+
+
 def _shapelet_fwd2(p, st, k, x, y):
-    _, _, gauss, _, _, _, hu, hv = _shapelet_basis(k, x, y, st.n_max)
-    comps = [gauss * hu[a] * hv[b] for a, b in _pairs(st.n_max)]
-    if st.lstsq:
-        return comps
+    """Components: the pf-scaled rows, the Gaussian in one of them, one
+    multiply a component."""
+    gauss, Hu, Hv = _shapelet_rows(k, x, y, st.n_max)
+    pf = [float(f) for f in shapelet_prefactor(st.n_max)]
+    hu = [(f * h) * gauss for f, h in zip(pf, Hu)]
+    hv = [f * h for f, h in zip(pf, Hv)]
+    return [hu[a] * hv[b] for a, b in _pairs(st.n_max)]
+
+
+def _shapelet_fwd_sum2(p, st, k, x, y):
+    """Summed: gauss * sum_j Hv[j] (sum_i a'[i][j] Hu[i]) against the folded
+    table, in the kernel's order."""
+    gauss, Hu, Hv = _shapelet_rows(k, x, y, st.n_max)
     total = 0.0
-    for j, comp in enumerate(comps):
-        total = total + p[:, st.off + 3 + j: st.off + 4 + j] * comp
-    return [total]
+    for j in range(st.n_max + 1):
+        t = 0.0
+        for i in range(st.n_max - j + 1):
+            t = t + k["table"][i, j] * Hu[i]
+        total = total + Hv[j] * t
+    return [gauss * total]
 
 
 def _shapelet_bwd2(p, st, k, x, y, cts):
@@ -1245,7 +1292,8 @@ def tile_forward_twostage(spec, params, x, y, extras=(), summed: bool = True):
     comps = []
     for st in spec.light:
         sx, sy = (bx, by) if st.is_source else (x, y)
-        comps.extend(_LIGHT_FWD2[st.op](params, st, consts[st], sx, sy))
+        fwd = _shapelet_fwd_sum2 if summed and st.op == SHAPELETS else _LIGHT_FWD2[st.op]
+        comps.extend(fwd(params, st, consts[st], sx, sy))
     comps = [torch.broadcast_to(c, (params.shape[0], x.shape[0])) for c in comps]
     if not summed:
         return torch.stack(comps)
@@ -1315,14 +1363,17 @@ def tile_backward_reference(spec, params, x, y, extras, ct, summed: bool):
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def smem_bytes(spec, n_sums: int, bwd: bool) -> int:
+def smem_bytes(spec, n_sums: int, bwd: bool, summed: bool = True) -> int:
     """Dynamic shared memory of a block (csrc/fused_builder.cu: smem_floats):
-    the packed row, SLOT floats a stage, a series table per EPL stage and,
-    for K7, Omega of each EPL stage and one float per thread per sums column."""
+    the packed row, SLOT floats a stage, a series table per EPL stage, for
+    the summed forward a folded table per shapelet stage and, for K7, Omega
+    of each EPL stage and one float per thread per sums column."""
     n_epl = sum(st.op == EPL for st in spec.mass)
     floats = -(-spec.n_cols // 4) * 4 + len(spec.stages) * SLOT + n_epl * 4 * fr.MAX_NITER
     if bwd:
         floats += n_epl * 2 * TILE + n_sums * TILE
+    elif summed:
+        floats += sum(shapelet_table_floats(st.n_max) for st in spec.light if st.op == SHAPELETS)
     return 4 * floats
 
 
@@ -1342,7 +1393,7 @@ def _launch_args(spec, params, x, y, extras, summed, bwd=False):
     if not summed and not spec.all_lstsq:
         raise ValueError("the components render needs every light stage in lstsq mode")
     offs, n_sums = sum_offsets(spec)
-    need = smem_bytes(spec, n_sums, bwd)
+    need = smem_bytes(spec, n_sums, bwd, summed)
     if need > MAX_SMEM:
         raise ValueError(f"the stage program needs {need} bytes of shared memory a block "
                          f"({n_sums} sums columns), above the card's {MAX_SMEM}")
@@ -1359,14 +1410,20 @@ def _launch_args(spec, params, x, y, extras, summed, bwd=False):
         row_off.append(rows)
         rows += e.shape[0]
     ex = torch.cat(list(extras)) if extras else torch.zeros((1,), device=dev)
-    recs, comp, n_epl = [], 0, 0
+    recs, comp, n_epl, n_shp = [], 0, 0, 0
     for st in spec.mass + spec.light:
         a = {EPL: st.niter, SERIES: st.order, SHAPELETS: st.n_max}.get(st.op, 0)
         if st.op == SERIES and st.extra >= len(extras):
             raise ValueError(f"series stage needs extras[{st.extra}]")
-        # b: a series stage's first grid row, an EPL stage's series table
-        b = row_off[st.extra] if st.op == SERIES else n_epl if st.op == EPL else 0
-        n_epl += st.op == EPL
+        # b: a series stage's first grid row, an EPL stage's series table, a
+        # shapelet stage's first float among the folded tables
+        b = 0
+        if st.op == SERIES:
+            b = row_off[st.extra]
+        elif st.op == EPL:
+            b, n_epl = n_epl, n_epl + 1
+        elif st.op == SHAPELETS:
+            b, n_shp = n_shp, n_shp + shapelet_table_floats(st.n_max)
         recs += [st.op, st.off, a, b, int(st.lstsq) | (int(st.is_source) << 1), comp, offs[st]]
         if st.op not in MASS_OPS:
             comp += st.n_out

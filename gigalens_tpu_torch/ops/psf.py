@@ -9,9 +9,10 @@ convolves a (..., H, W) batch with a fixed kernel in one of two modes:
   two hand-written kernels (K4), chosen at construction by a shape rule
   (:func:`~gigalens_tpu_torch.ops.cuda.direct_conv.k4_route`, kept as
   ``PSFConv.route``): ``"direct"``, a strided sum over the pooled kernel
-  (``ops/cuda/direct_conv.py``), or ``"chain"``, the DFT factor chain
-  (``ops/cuda/dft_conv.py``) for PSFs too large for it. On the CPU it runs
-  the chain's plain twin, the JAX package's ``_dft_conv`` einsum chain.
+  (``ops/cuda/direct_conv.py``), or ``"chain"``, the DFT factor chain over
+  half of the spectrum (``ops/cuda/dft_conv.py``) for the larger PSFs,
+  where it is faster. On the CPU it runs the chain's plain twin, the JAX
+  package's ``_dft_conv`` einsum chain on the half-spectrum factors.
 * ``"fft"``: zero-padded linear convolution by ``torch.fft.rfft2`` /
   ``irfft2`` with the kernel spectrum precomputed (the HMC/SMC "exact" path).
 
@@ -124,7 +125,7 @@ def _good_fft_size(n: int) -> int:
     return best
 
 
-def dft_factors(kernel: np.ndarray, img_shape, pool: int = 1):
+def dft_factors(kernel: np.ndarray, img_shape, pool: int = 1, half: bool = False):
     """The DFT chain's ten float32 factors for ``kernel`` on ``img_shape``
     images, in :class:`DFTConv`'s argument order: Fh, Fw (re, im), the
     kernel spectrum K (re, im), and the inverses Ih, Iw (re, im).
@@ -132,7 +133,19 @@ def dft_factors(kernel: np.ndarray, img_shape, pool: int = 1):
     The factors do no wasted work: the forward matrices are rectangular
     (fh, H) / (fw, W) slices (the zero padding contributes nothing), and the
     inverse matrices fold in the 'SAME' crop and, when pool > 1, the
-    average pool.
+    average pool. ``half=False`` gives the JAX package's full-spectrum set.
+
+    ``half=True`` keeps the spectral columns 0 .. fw // 2 only (Fw's rows,
+    K's and Iw's columns): image and kernel are real, so column fw - c of
+    the spectrum is the conjugate of column c and adds the conjugate term
+    to the last product, whose real part is all the chain keeps. K then
+    carries the weights, 1 for the self-conjugate columns (0 and, for even
+    fw, fw / 2) and 2 for the rest, so ``Re[...]`` is unchanged in exact
+    arithmetic. The weights sit on K and not on the last factor because the
+    forward and the transposed chain share K (the last factor of one is
+    the first of the other); they commute through the products either way.
+    Half of the chain's multiply-adds go: this is what the card's chain
+    kernel and its CPU twin run.
     """
     kernel = np.asarray(kernel, np.float32)
     kh, kw = kernel.shape
@@ -154,15 +167,20 @@ def dft_factors(kernel: np.ndarray, img_shape, pool: int = 1):
 
     Fh, Fw = dft(fh), dft(fw)
     oy, ox = kh // 2, kw // 2
+    # inverse DFT = conj(F)/n, with crop (+pool) folded in
+    Ih = fold(Fh.real / fh, oy, h) + 1j * fold(-Fh.imag / fh, oy, h)
+    Iw = fold(Fw.real / fw, ox, w) + 1j * fold(-Fw.imag / fw, ox, w)
+    Fh, Fw = Fh[:, :h], Fw[:, :w]
+    if half:
+        hw = fw // 2 + 1
+        weight = np.full(hw, 2.0)
+        weight[0] = 1.0
+        if fw % 2 == 0:
+            weight[-1] = 1.0
+        Fw, Iw, kfft = Fw[:hw], Iw[:, :hw], kfft[:, :hw] * weight
     f32 = np.float32
-    return (
-        Fh.real[:, :h].astype(f32).copy(), Fh.imag[:, :h].astype(f32).copy(),
-        Fw.real[:, :w].astype(f32).copy(), Fw.imag[:, :w].astype(f32).copy(),
-        kfft.real.astype(f32), kfft.imag.astype(f32),
-        # inverse DFT = conj(F)/n, with crop (+pool) folded in
-        fold(Fh.real / fh, oy, h).astype(f32), fold(-Fh.imag / fh, oy, h).astype(f32),
-        fold(Fw.real / fw, ox, w).astype(f32), fold(-Fw.imag / fw, ox, w).astype(f32),
-    )
+    return tuple(np.ascontiguousarray(part, f32) for m in (Fh, Fw, kfft, Ih, Iw)
+                 for part in (m.real, m.imag))
 
 
 # --------------------------------------------------------------------------
@@ -208,15 +226,13 @@ class PSFConv:
             # the CPU runs the chain's einsum twin: parity with the JAX package
             self.route = "chain"
             if self.device.type == "cuda":
-                self.route = k4_route(self.kh, self.kw, p)
+                self.route = k4_route(self.kh, self.kw, p, self.h, self.w)
             self._dft = self._direct = None
             if self.route == "direct":
                 self._direct = DirectConv(self.kernel, (self.h, self.w), p, self.device)
             else:
-                factors = dft_factors(self.kernel, (self.h, self.w), p)
-                (self._fh_re, self._fh_im, self._fw_re, self._fw_im, self._k_re, self._k_im,
-                 self._ih_re, self._ih_im, self._iw_re, self._iw_im) = factors
-                self._dft = DFTConv(*factors, device=self.device)
+                self._dft = DFTConv(*dft_factors(self.kernel, (self.h, self.w), p, half=True),
+                                    device=self.device)
         else:
             kpad = np.zeros((fh, fw), np.float64)
             kpad[: self.kh, : self.kw] = self.kernel

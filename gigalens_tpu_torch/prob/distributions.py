@@ -212,9 +212,16 @@ class HalfNormal(Distribution):
 
 
 def _device_of(loc, device):
+    """The device of an MVN: the one named, else a tensor ``loc``'s own, else
+    the entry points' rule (``model.resolve_device``: the CUDA card, and an
+    error that names ``device="cpu"`` without one)."""
     if device is not None:
         return device
-    return loc.device if isinstance(loc, torch.Tensor) else "cpu"
+    if isinstance(loc, torch.Tensor):
+        return loc.device
+    from gigalens_tpu_torch.model import resolve_device
+
+    return resolve_device(None)
 
 
 class MultivariateNormalTriL:
@@ -222,7 +229,8 @@ class MultivariateNormalTriL:
 
     The SVI surrogate posterior and the HMC momentum preconditioner.
     ``loc`` (d,) and ``scale_tril`` (d, d) become float32 tensors on
-    ``device`` (default: ``loc``'s device if it is a tensor, else the CPU).
+    ``device`` (default: ``loc``'s device if it is a tensor, else the CUDA
+    card; the CPU only when asked for by name).
     """
 
     def __init__(self, loc, scale_tril, device=None):

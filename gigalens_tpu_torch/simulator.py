@@ -107,6 +107,10 @@ class LensSimulator(gmodel.VersionedAttrs):
         # ---- PSF ----------------------------------------------------------
         self._conv = None
         if sim_config.kernel is not None:
+            if np.ndim(sim_config.kernel) != 2:
+                raise NotImplementedError(
+                    "per-scene PSF stacks (survey mode) are not ported yet (ROADMAP M17)"
+                )
             kern = subgrid_kernel(np.asarray(sim_config.kernel), ss, odd=True)
             mode = sim_config.psf_mode
             if mode is None and sim_config.use_fft is not None:
@@ -156,7 +160,8 @@ class LensSimulator(gmodel.VersionedAttrs):
             and not pm.lens_light[0].use_lstsq
         )
         ok = (
-            len(pm.lenses) == 2
+            getattr(pm, "mp_factors", None) is None  # single-plane only
+            and len(pm.lenses) == 2
             and type(pm.lenses[0]) in (EPL, SIE)
             and type(pm.lenses[1]) is Shear
             and ll_ok

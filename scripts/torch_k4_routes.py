@@ -1,19 +1,24 @@
 #!/usr/bin/env python3
 """K4's two routes timed against each other across PSF sizes on the card.
 
-    python3 scripts/torch_k4_routes.py [--bs 500] [--img 160] [--psf 51,95,121,151,161,...]
+    python3 scripts/torch_k4_routes.py [--bs 500] [--img 160] [--psf 51,61,71,...]
 
 For each supersampled PSF size (pool 2, ``img`` x ``img`` images, ``bs``
-samples of standard-normal input): builds the DFT chain
+samples of standard-normal input): builds the half-spectrum DFT chain
 (``ops/cuda/dft_conv.py``) and, wherever a block of MIN_WARPS warps fits
 its shared memory, the direct strided-sum kernel
-(``ops/cuda/direct_conv.py``) for the same random PSF; checks that the two
-routes agree to 1e-4 of the output's max in both directions, and times
-each direction of each route with CUDA events. Prints the card's name and
-power limit, then one JSON line per size: both routes' ms, the direct
-kernel's launch plan (warps per block, shared memory), and the function's
-bound (2 x out pixels x pooled taps FP32 operations over the FP32 peak).
-Needs a CUDA device.
+(``ops/cuda/direct_conv.py``) for the same random PSF, whatever
+``k4_route`` would pick (``route`` in the output says which); checks that
+the two routes agree to 1e-4 of the output's max in both directions, and
+times each direction of each route with CUDA events. Prints the card's
+name and power limit, then one JSON line per size: both routes' ms, the
+direct kernel's launch plan (warps per block, shared memory), both
+algorithms' multiply-adds a sample (the chain's also as its tiles execute
+them, forward and transpose) and the function's bound (the cheaper
+algorithm's FP32 operations over the FP32 peak). ``k4_route``
+(``ops/cuda/direct_conv.py``) compares the two counts; this script's output
+is the measurement that rule rests on: it should name the faster route at
+every size. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -30,7 +35,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--bs", type=int, default=500)
     ap.add_argument("--img", type=int, default=160)
-    ap.add_argument("--psf", default="51,95,121,151,161,163,169,175,177,183")
+    ap.add_argument("--psf", default="51,61,65,71,75,81,91,101,121,151,175,177,201,261")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -55,11 +60,14 @@ def main(argv=None):
     for k in (int(s) for s in args.psf.split(",")):
         kern = rng.random((k, k)).astype(np.float32)
         kern /= kern.sum()
-        row = dict(psf=k, img=h, bs=bs, route=dcv.k4_route(k, k, pool))
-        chain = dc.DFTConv(*dft_factors(kern, (h, h), pool), device=dev)
-        row["fshape"] = list(chain.fwd_mats[4].shape)
-        ops = 2 * bs * (h // pool) ** 2 * (k + pool - 1) ** 2
-        row["bound_ms"] = 1e3 * ops / cs.FP32_PEAK
+        row = dict(psf=k, img=h, bs=bs, route=dcv.k4_route(k, k, pool, h, h))
+        chain = dc.DFTConv(*dft_factors(kern, (h, h), pool, half=True), device=dev)
+        row["half_spectrum"] = list(chain.fwd_mats[4].shape)
+        row["direct_macs"] = dcv.direct_macs(h, h, k, k, pool)
+        row["chain_macs"] = dc.chain_macs(h, h, k, k, pool)
+        row["chain_tile_macs"] = [dc.chain_macs(h, h, k, k, pool, transpose=t, tiles=True)
+                                  for t in (False, True)]
+        row["bound_ms"] = 1e3 * 2 * bs * min(row["direct_macs"], row["chain_macs"]) / cs.FP32_PEAK
         ku, kv = dcv._sub_shape(k, k, pool)
         fits = None not in (dcv.plan(ku, kv, pool * pool, h // pool),
                             dcv.plan(ku, kv, 1, h // pool))

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Where the time of a MAP or HMC step goes on the card (PyTorch/CUDA port).
 
-    python3 scripts/torch_map_profile.py [--family bench|S|L|hmc] [--trace out.json]
+    python3 scripts/torch_map_profile.py [--family bench|chain|S|L|hmc] [--trace out.json]
 
-``bench``, ``S``, ``L``: builds one of chip_smoke.py's MAP problems at bs=500
-(80x80 px, supersample 2): the bench scene (K1-K4), the shapelet-source
-family S (K5/K7 and K4) or the lstsq family L (K6/K7 and K4), warms up
+``bench``, ``chain``, ``S``, ``L``: builds one of chip_smoke.py's MAP
+problems at bs=500 (80x80 px, supersample 2): the bench scene (K1-K3, the
+direct K4), the bench scene under the wide PSF that takes the DFT chain
+(K1-K3, the chain K4), the shapelet-source family S (K5/K7 and K4) or the
+lstsq family L (K6/K7 and K4), warms up
 with 5 MAP steps, times 10 MAP steps, then runs 10 more under
 ``torch.profiler``.
 
@@ -89,7 +91,7 @@ def hmc_steps(steps):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--family", choices=("bench", "S", "L", "hmc"), default="bench")
+    ap.add_argument("--family", choices=("bench", "chain", "S", "L", "hmc"), default="bench")
     ap.add_argument("--trace", type=Path, default=None, help="chrome trace output")
     args = ap.parse_args()
 

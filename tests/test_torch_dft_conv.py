@@ -3,7 +3,10 @@
 Sizes follow tests/test_dft_pallas.py (9x9 kernel, 40x40 images, pool 2).
 Tolerance: 1e-4 relative to the output's max (float32 on both sides);
 host-side factors and subgrid kernels are numpy on both sides and must be
-identical.
+identical. The half-spectrum factor set the port runs is held to the full
+set at 1e-12 of the max in float64 (the two are equal in exact arithmetic)
+and to JAX's full-spectrum ``_dft_conv`` at 5e-6 of the max in float32
+(measured 2e-7 to 4e-7: both sides round 40-50-term sums of O(1) products).
 """
 import jax
 import jax.numpy as jnp
@@ -15,8 +18,8 @@ from gigalens_tpu.ops.pallas.dft_conv import PallasDFTConv
 from gigalens_tpu.ops.psf import PSFConv as JPSFConv
 from gigalens_tpu.ops.psf import average_pool as j_average_pool
 from gigalens_tpu.ops.psf import subgrid_kernel as j_subgrid_kernel
-from gigalens_tpu_torch.ops.cuda.dft_conv import dft_conv_reference
-from gigalens_tpu_torch.ops.psf import PSFConv, average_pool, subgrid_kernel
+from gigalens_tpu_torch.ops.cuda.dft_conv import DFTConv, dft_conv_reference
+from gigalens_tpu_torch.ops.psf import PSFConv, average_pool, dft_factors, subgrid_kernel
 
 REL = 1e-4  # of the output's max
 
@@ -51,9 +54,24 @@ def setup():
 def test_factors_identical_to_jax(setup):
     j, t = setup["jconv"], setup["conv"]
     assert t.fshape == j.fshape
-    for name in ("_fh_re", "_fh_im", "_fw_re", "_fw_im", "_k_re", "_k_im",
-                 "_ih_re", "_ih_im", "_iw_re", "_iw_im"):
-        np.testing.assert_array_equal(getattr(t, name), getattr(j, name), err_msg=name)
+    names = ("_fh_re", "_fh_im", "_fw_re", "_fw_im", "_k_re", "_k_im",
+             "_ih_re", "_ih_im", "_iw_re", "_iw_im")
+    full = dft_factors(setup["kern"], (40, 40), 2)
+    for name, got in zip(names, full):
+        np.testing.assert_array_equal(got, getattr(j, name), err_msg=name)
+    # the half set the port runs: columns 0 .. fw / 2 of the same numbers,
+    # the conjugate half's weight on K
+    fw = t.fshape[1]
+    hw = fw // 2 + 1
+    weight = np.array([1.0] + [2.0] * (hw - 2) + [1.0], np.float32)  # fw = 48 is even
+    for name, got, want in zip(names, dft_factors(setup["kern"], (40, 40), 2, half=True), full):
+        if name.startswith("_fw"):
+            want = want[:hw]
+        elif name.startswith("_iw"):
+            want = want[:, :hw]
+        elif name.startswith("_k"):
+            want = want[:, :hw] * weight
+        np.testing.assert_array_equal(got, want, err_msg=name)
 
 
 def test_subgrid_kernel_identical_and_bench_fshape():
@@ -105,3 +123,62 @@ def test_unported_modes_raise(setup):
         PSFConv(setup["kern"], (40, 40), mode="direct", device="cpu")
     with pytest.raises(NotImplementedError):
         PSFConv(np.stack([setup["kern"]] * 2), (40, 40), mode="fft", device="cpu")
+
+
+# (image shape, kernel shape, pool): fw = 45 (odd) for 36-px rows with a 9-px
+# kernel, 48 (even) otherwise; the last case is not square
+HALF_CASES = [((36, 36), (9, 9), 1), ((36, 36), (9, 9), 2), ((36, 36), (9, 9), 3),
+              ((40, 40), (9, 9), 1), ((40, 40), (9, 9), 2), ((42, 42), (7, 7), 3),
+              ((40, 36), (7, 9), 2)]
+
+
+def _case(shape, kshape, pool, seed=0):
+    rng = np.random.default_rng(seed)
+    kern = rng.random(kshape).astype(np.float32)
+    kern /= kern.sum()
+    x = rng.standard_normal((3, *shape)).astype(np.float32)
+    ct = rng.standard_normal((3, shape[0] // pool, shape[1] // pool)).astype(np.float32)
+    return kern, x, ct
+
+
+def _f64(mats):
+    return [m.double() for m in mats]
+
+
+@pytest.mark.parametrize("shape,kshape,pool", HALF_CASES)
+def test_half_spectrum_matches_full_spectrum_and_jax(shape, kshape, pool):
+    kern, x, ct = _case(shape, kshape, pool)
+    half = DFTConv(*dft_factors(kern, shape, pool, half=True), device="cpu")
+    full = DFTConv(*dft_factors(kern, shape, pool), device="cpu")
+    hw = half.fwd_mats[2].shape[1]
+    assert hw % 4 == 0 and hw - 4 < PSFConv(kern, shape, "fft", device="cpu").fshape[1] // 2 + 1 <= hw
+    jconv = JPSFConv(kern, shape, mode="dft", pool=pool, pallas=False)
+    out_j, vjp = jax.vjp(jconv, jnp.asarray(x))
+    for arg, hm, fm, want_j in ((x, half.fwd_mats, full.fwd_mats, out_j),
+                                (ct, half.bwd_mats, full.bwd_mats, vjp(jnp.asarray(ct))[0])):
+        a = torch.tensor(arg)
+        got64 = dft_conv_reference(a.double(), _f64(hm))
+        want64 = dft_conv_reference(a.double(), _f64(fm))
+        # the same float32 factors in float64 products: only the order of
+        # the sums differs (measured 1e-15 to 2e-14 of the max)
+        assert float((got64 - want64).abs().max()) <= 1e-12 * float(want64.abs().max())
+        got = dft_conv_reference(a, hm).numpy()
+        want_j = np.asarray(want_j)
+        np.testing.assert_allclose(got, want_j, rtol=0, atol=5e-6 * np.abs(want_j).max())
+
+
+@pytest.mark.parametrize("shape,kshape,pool", HALF_CASES)
+def test_half_spectrum_transpose_is_the_exact_adjoint(shape, kshape, pool):
+    """<conv(x), ct> = <x, conv^T(ct)> in float64 on the half-spectrum sets,
+    and through autograd of the port's PSFConv."""
+    kern, x, ct = _case(shape, kshape, pool, seed=1)
+    conv = PSFConv(kern, shape, mode="dft", pool=pool, device="cpu")
+    assert conv.route == "chain"
+    x64, ct64 = torch.tensor(x).double(), torch.tensor(ct).double()
+    y = dft_conv_reference(x64, _f64(conv._dft.fwd_mats))
+    g = dft_conv_reference(ct64, _f64(conv._dft.bwd_mats))
+    lhs, rhs = float((y * ct64).sum()), float((x64 * g).sum())
+    assert abs(lhs - rhs) <= 1e-12 * max(abs(lhs), abs(rhs), 1.0)
+    xr = torch.tensor(x, requires_grad=True)
+    (xbar,) = torch.autograd.grad(conv(xr), xr, torch.tensor(ct))
+    np.testing.assert_allclose(xbar.numpy(), g.numpy(), rtol=0, atol=1e-5 * float(g.abs().max()))

@@ -14,7 +14,7 @@ import torch.nn.functional as F
 
 from gigalens_tpu.ops.psf import PSFConv as JPSFConv
 from gigalens_tpu_torch.ops.cuda import direct_conv as dcv
-from gigalens_tpu_torch.ops.cuda.dft_conv import dft_conv_reference
+from gigalens_tpu_torch.ops.cuda.dft_conv import chain_macs, dft_conv_reference
 from gigalens_tpu_torch.ops.psf import PSFConv, subgrid_kernel
 
 REL = 1e-5  # of the output's max
@@ -46,10 +46,7 @@ def test_direct_matches_einsum_twin_and_jax(kh, kw, pool):
     assert got.shape == (5, 40 // pool, 40 // pool)
     twin = PSFConv(kern, (40, 40), mode="dft", pool=pool, device="cpu")
     assert twin.route == "chain"  # the CPU keeps the einsum twin
-    mats = (torch.as_tensor(a) for a in (twin._fh_re, twin._fh_im, twin._fw_re.T,
-                                         twin._fw_im.T, twin._k_re, twin._k_im, twin._ih_re,
-                                         twin._ih_im, twin._iw_re.T, twin._iw_im.T))
-    _close(got, dft_conv_reference(torch.tensor(x), list(mats)))
+    _close(got, dft_conv_reference(torch.tensor(x), twin._dft.fwd_mats))
     jconv = JPSFConv(kern, (40, 40), mode="dft", pool=pool, pallas=False)
     _close(got, jconv(jnp.asarray(x)))
     # the same weights as one PyTorch call (the chip check's library yardstick)
@@ -106,17 +103,29 @@ def test_direct_conv_autograd_and_pooled_kernel():
 
 def test_k4_route_and_plans():
     """The bench shape (160x160 supersampled, 51-px PSF, pool 2) takes the
-    direct route, as does every PSF whose two directions fit a block of
-    MIN_WARPS warps in the direct kernel's shared memory (up to 175 px at
-    pool 2); larger PSFs take the chain. Only the CPU keeps the chain's
-    einsum twin whatever the size."""
+    direct route, as does every PSF whose direct sum costs no more than the
+    half-spectrum chain's tiles at the two kernels' measured rates (to 79 px
+    on 160x160, and 93-103 px where the spectrum has just grown by a tile);
+    the rest, and every PSF that does not fit the direct kernel's shared
+    memory (above 175 px at pool 2), take the chain. Only the CPU keeps the
+    chain's einsum twin whatever the size."""
     g = np.exp(-((np.arange(25) - 12) ** 2 + (np.arange(25)[:, None] - 12) ** 2) / 8.0)
     sk = subgrid_kernel((g / g.sum()).astype(np.float32), 2, odd=True)
     assert sk.shape == (51, 51)
-    assert dcv.k4_route(51, 51, 2) == "direct"
-    assert [dcv.k4_route(k, k, 2) for k in (95, 121, 125, 175)] == ["direct"] * 4
-    assert [dcv.k4_route(k, k, 2) for k in (177, 183, 185, 201)] == ["chain"] * 4
-    assert dcv.k4_route(121, 121, 1) == "direct"
+
+    def routes(sizes, pool=2, side=160):
+        return [dcv.k4_route(k, k, pool, side, side) for k in sizes]
+
+    assert routes((25, 51, 61, 71, 75, 79)) == ["direct"] * 6
+    assert routes((81, 85, 91)) == ["chain"] * 3
+    assert routes((95, 101)) == ["direct"] * 2
+    assert routes((107, 121, 151, 175, 177, 183, 201, 261)) == ["chain"] * 8
+    # the rule compares work, so the image size enters
+    assert routes((101, 121), side=320) == ["direct", "chain"]
+    assert routes((9, 25), side=40) == ["direct"] * 2
+    assert dcv.direct_macs(160, 160, 51, 51, 2) == 80 * 80 * 52 * 52
+    assert chain_macs(160, 160, 51, 51, 2) == chain_macs(160, 160, 51, 51, 2, transpose=True) == 29_578_240
+    assert chain_macs(160, 160, 51, 51, 2, tiles=True) == 37_355_520
     conv = PSFConv(sk, (160, 160), mode="dft", pool=2, device="cpu")
     assert conv.route == "chain" and conv._dft is not None and conv._direct is None
     # bench plans: 8 warps; the forward holds its four sub-kernels

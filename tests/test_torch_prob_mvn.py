@@ -90,7 +90,8 @@ def test_mvn_tril_log_prob_and_moments_match_jax():
     rng = np.random.default_rng(1)
     loc, tril = _mvn_params(rng)
     x = _vec(rng, 2, 6, D)
-    jq, tq = jdist.MultivariateNormalTriL(loc, tril), tdist.MultivariateNormalTriL(loc, tril)
+    jq = jdist.MultivariateNormalTriL(loc, tril)
+    tq = tdist.MultivariateNormalTriL(loc, tril, device="cpu")
     np.testing.assert_allclose(tq.log_prob(torch.tensor(x)).numpy(),
                                np.asarray(jq.log_prob(jnp.asarray(x))), rtol=MVN_RTOL)
     np.testing.assert_allclose(tq.covariance().numpy(), np.asarray(jq.covariance()),
@@ -102,7 +103,7 @@ def test_mvn_sample_on_shared_eps_matches_jax():
     """sample() is loc + eps @ L^T on the generator's normal draws."""
     rng = np.random.default_rng(2)
     loc, tril = _mvn_params(rng)
-    tq = tdist.MultivariateNormalTriL(loc, tril)
+    tq = tdist.MultivariateNormalTriL(loc, tril, device="cpu")
     got = tq.sample(torch.Generator().manual_seed(7), (9,))
     eps = torch.randn((9, D), generator=torch.Generator().manual_seed(7)).numpy()
     want = np.asarray(jnp.asarray(loc) + jnp.asarray(eps) @ jnp.asarray(tril).T)
@@ -120,13 +121,14 @@ def test_mvn_full_covariance_and_diag_match_jax():
     cov = tril @ tril.T
     x = _vec(rng, 7, D)
     jf, tf = (jdist.MultivariateNormalFullCovariance(loc, cov),
-              tdist.MultivariateNormalFullCovariance(loc, cov))
+              tdist.MultivariateNormalFullCovariance(loc, cov, device="cpu"))
     np.testing.assert_allclose(tf.scale_tril.numpy(), np.asarray(jf.scale_tril), rtol=MVN_RTOL,
                                atol=1e-6)
     np.testing.assert_allclose(tf.log_prob(torch.tensor(x)).numpy(),
                                np.asarray(jf.log_prob(jnp.asarray(x))), rtol=MVN_RTOL)
     diag = np.exp(_vec(rng, D) * 0.3)
-    jd, td = jdist.MultivariateNormalDiag(loc, diag), tdist.MultivariateNormalDiag(loc, diag)
+    jd = jdist.MultivariateNormalDiag(loc, diag)
+    td = tdist.MultivariateNormalDiag(loc, diag, device="cpu")
     np.testing.assert_allclose(td.log_prob(torch.tensor(x)).numpy(),
                                np.asarray(jd.log_prob(jnp.asarray(x))), rtol=MVN_RTOL)
 

@@ -119,6 +119,7 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(demo_prior, demo_phys
     from gigalens_tpu_torch.interop import (mvn_from_reference, phys_model_from_reference,
                                             prior_from_reference, sim_config_from_reference)
     from gigalens_tpu_torch.model import BackwardProbModel, ForwardProbModel
+    from gigalens_tpu_torch.prob import distributions as tdist
     from gigalens_tpu_torch.simulator import LensSimulator
 
     prior = prior_from_reference(demo_prior)
@@ -132,6 +133,9 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(demo_prior, demo_phys
         lambda: phase_simulator({}, cfg, phys, 1),
         lambda: tree_to_torch({"a": [np.zeros(2)]}),
         lambda: mvn_from_reference(SimpleNamespace(loc=np.zeros(2), scale_tril=np.eye(2))),
+        lambda: tdist.MultivariateNormalTriL(np.zeros(2), np.eye(2)),
+        lambda: tdist.MultivariateNormalFullCovariance(np.zeros(2), np.eye(2)),
+        lambda: tdist.MultivariateNormalDiag(np.zeros(2), np.ones(2)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match='device="cpu"'):
@@ -143,3 +147,5 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(demo_prior, demo_phys
     assert tree_to_torch({"a": [np.zeros(2)]}, device="cpu")["a"][0].device.type == "cpu"
     q = mvn_from_reference(SimpleNamespace(loc=np.zeros(2), scale_tril=np.eye(2)), device="cpu")
     assert q.scale_tril.device.type == "cpu"
+    # a tensor loc carries its own device: the container follows it
+    assert tdist.MultivariateNormalDiag(torch.zeros(2), np.ones(2)).loc.device.type == "cpu"
