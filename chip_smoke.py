@@ -56,10 +56,25 @@
    1000 x 300, HMC 50 chains x (250 + 750) ChEES, under the bench gates
    (best-MAP and posterior red-chi2 <= 1.1, max split-R-hat <= 1.02),
    with K2/K3 and the direct K4 both ways required in MAP and SVI and K2/K3
-   without any K4 in HMC; then checks K2/K3 at the SVI (1000 surrogate
-   draws) and HMC (the 50 chains' last states) shapes, and the direct K4 at
+   without any K4 in HMC.
+7. Runs adaptive-tempering SMC at full width on the same scene and
+   observation (Pipeline.phase_smc, scripts/bench_smc.py's recipe: 1000
+   particles, 3-leapfrog preconditioned moves, ESS threshold 0.6, 100 post
+   steps, at most 200 stages, seed 1, prior start, pixels target) through
+   ModellingSequence.SMC on the exact path, gated on beta = 1 inside the
+   stage limit, a finite log-evidence, finite (100, 1000, d) post samples,
+   the last post draw's red-chi2 <= CHI2_GATE, and K2/K3 with no K4; then
+   one stage of moves from the final cloud plain and under torch.profiler
+   (host ms a leapfrog, device idle share).
+8. Runs the multiple-image positions workflow (examples/demo_cluster.py
+   --smc) at a smaller depth: find_images on the scene's truth (>= 2
+   images), a pixels + positions ForwardProbModel, 150 MAP steps from 200
+   starts, SMC annealing both terms from the MAP subsample (200 particles,
+   10 post steps), gated on beta = 1 and both red-chi2 terms <= CHI2_GATE.
+9. Checks K2/K3 at the SVI (1000 surrogate draws), HMC (the 50 chains' last
+   states) and SMC (the 1000 final particles) shapes, and the direct K4 at
    the SVI shape, against their float64 twins.
-7. Ends with the card line, a JSON line of per-kernel results and the ok
+10. Ends with the card line, a JSON line of per-kernel results and the ok
    line.
 
 Every phase raises on failure (nothing is caught), so any failure exits
@@ -1153,13 +1168,209 @@ def pipeline_phase():
     return pipe, rec
 
 
-def pipeline_kernel_checks(pipe):
+# the positions phase (examples/demo_cluster.py --smc at a smaller depth):
+# MAP starts x steps, SMC particles and post steps, image-position errors
+POS_MAP_N, POS_MAP_STEPS, POS_PARTICLES, POS_POST, POS_ERR = 200, 150, 200, 10, 0.1
+PROFILE_SEED = 3
+
+
+def device_rows(prof):
+    """(device us, calls, name) per kernel of a torch.profiler window,
+    device-side events only (a CPU op's device time repeats its kernels'),
+    largest first."""
+    from torch.autograd import DeviceType
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    return sorted(((dev_us(e), e.count, e.key) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0), reverse=True)
+
+
+def smc_phase(pipe, rec):
+    """Adaptive-tempering SMC at full width on the pipeline's scene
+    (Pipeline.phase_smc: scripts/bench_smc.py's recipe, 1000 particles x 1
+    ensemble, 3-leapfrog moves, ESS threshold 0.6, 100 post steps, max 200
+    stages, seed 1, prior start, pixels target, the default auxiliary
+    degrading to none) through ModellingSequence.SMC on the exact
+    simulator. Launch counters and peak memory are zeroed just before and
+    read just after (the pipeline's phase hook). Raises unless beta reaches
+    1 inside max_stage, the log-evidence and the (100, 1000, d) post samples
+    are finite, the last post draw's mean red-chi2 is <= CHI2_GATE, and K2/K3
+    launched with no K4 by either route. Then times one stage of moves from
+    the final cloud twice, plain and under torch.profiler, for the host ms a
+    leapfrog and the device's idle share. Returns the SMC result."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gigalens_tpu_torch import bench
+    from gigalens_tpu_torch.inference.smc import fit_smc
+
+    c = bench.SMC_CONFIGS["full"]
+    pipe.phase_smc()
+    res, block, r = pipe.smc_res, pipe.result["smc"], rec["smc"]
+    counts = r["counts"]
+    print(f"SMC: {c['particles']} particles x {c['ensembles']} ensemble, L {c['leapfrog_steps']}, "
+          f"ESS threshold {c['ess_threshold_ratio']}: {block['stages']} stages to beta "
+          f"{block['final_beta']}, {block['moves']} tempering moves + {c['post_steps']} post "
+          f"steps = {block['leapfrogs']} leapfrogs", flush=True)
+    print(f"SMC: wall {block['wall_s']} s (tempering {block['tempering_s']} s, post chain "
+          f"{block['post_s']} s), {block['ms_per_leapfrog']} ms/leapfrog on the host clock at "
+          f"bs {c['particles'] * c['ensembles']}, peak device memory {r['peak']:.3f} GiB",
+          flush=True)
+    print(f"SMC: logZ {block['log_evidence']}, posterior red-chi2 (last post draw) "
+          f"{block['posterior_red_chi2']}, launches {json.dumps(counts)}", flush=True)
+    print(f"SMC JSON: {json.dumps(block)}", flush=True)
+
+    d = pipe.prior.d
+    n = c["particles"] * c["ensembles"]
+    if not (bool((res.final_beta == 1.0).all()) and res.num_stages < c["max_stage"]):
+        raise AssertionError(f"SMC did not reach beta = 1 inside {c['max_stage']} stages: "
+                             f"beta {block['final_beta']} after {res.num_stages}")
+    if not torch.isfinite(res.log_evidence).all():
+        raise AssertionError(f"SMC log-evidence not finite: {block['log_evidence']}")
+    if (tuple(res.post_samples.shape) != (c["post_steps"], n, d)
+            or not torch.isfinite(res.post_samples).all()):
+        raise AssertionError(f"SMC post samples not finite / wrong shape "
+                             f"{tuple(res.post_samples.shape)}")
+    if not block["posterior_red_chi2"] <= CHI2_GATE:
+        raise AssertionError(f"SMC posterior red-chi2 {block['posterior_red_chi2']} > {CHI2_GATE}")
+    missing = [k for k in HMC_NEED if counts[k] <= 0]
+    extra = [k for k in HMC_BANNED if counts[k] != 0]
+    if missing or extra:
+        raise AssertionError(f"SMC: kernels never launched {missing}, launched but off this "
+                             f"path {extra}")
+
+    # one stage of moves from the final cloud (8 moves of 3 leapfrogs and
+    # the first evaluation), plain then profiled
+    sim = pipe.seq._sim(n, exact=True)
+
+    def stage():
+        out = fit_smc(pipe.prob_model, sim, start=res.particles, num_particles=c["particles"],
+                      num_ensembles=c["ensembles"], num_leapfrog_steps=c["leapfrog_steps"],
+                      post_sampling_steps=0, ess_threshold_ratio=c["ess_threshold_ratio"],
+                      max_stage=1, seed=PROFILE_SEED)
+        return out.num_moves * c["leapfrog_steps"] + 1
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    evals = stage()
+    torch.cuda.synchronize()
+    plain = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        evals_p = stage()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = device_rows(prof)
+    busy = sum(r[0] for r in rows) / 1e6
+    print(f"SMC profile (one stage from the final cloud, {evals} evaluations with "
+          f"gradients): {1e3 * plain / evals:.3f} ms/leapfrog unprofiled, "
+          f"{1e3 * wall / evals_p:.3f} profiled; device busy {1e3 * busy / evals_p:.3f} "
+          f"ms/leapfrog = idle {100 * (1 - busy / plain):.1f}% of the unprofiled wall; "
+          f"{sum(r[1] for r in rows) / evals_p:.0f} launches a leapfrog; by kernel "
+          f"(ms/leapfrog, launches/leapfrog, name):", flush=True)
+    for us, count, key in rows[:8]:
+        print(f"  {us / 1e3 / evals_p:8.3f}  {count / evals_p:6.1f}  {key[:100]}", flush=True)
+    groups = {"K2+K3": [0.0, 0], "cuFFT": [0.0, 0], "the rest": [0.0, 0]}
+    for us, count, key in rows:
+        g = groups["K2+K3" if "fused_render" in key
+                   else "cuFFT" if "fft" in key.lower() else "the rest"]
+        g[0], g[1] = g[0] + us, g[1] + count
+    print("SMC device time a leapfrog by group: " + ", ".join(
+        f"{name} {us / 1e3 / evals_p:.3f} ms ({count / evals_p:.0f} launches)"
+        for name, (us, count) in groups.items()), flush=True)
+    if busy <= 0:
+        raise AssertionError("torch.profiler saw no device time in the SMC moves")
+    return res
+
+
+def positions_phase(pipe):
+    """The multiple-image positions workflow (examples/demo_cluster.py
+    --smc) at a smaller depth: the images of the scene's true source under
+    the true lens from find_images (>= 2 required), a ForwardProbModel with
+    pixels and positions, a short multi-start MAP, then SMC annealing both
+    terms (target "pixels+positions", auxiliar "none") from the MAP
+    subsample. Raises unless beta reaches 1 and the last post draw's mean
+    pixel and position red-chi2 are each <= CHI2_GATE."""
+    import numpy as np
+    import torch
+
+    from gigalens_tpu_torch import bench
+    from gigalens_tpu_torch.inference import ModellingSequence
+    from gigalens_tpu_torch.inference.sequence import map_optimizer
+    from gigalens_tpu_torch.model import ForwardProbModel
+    from gigalens_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from gigalens_tpu_torch.simulator import LensSimulator
+    from gigalens_tpu_torch.utils import find_images
+
+    dev = torch.device("cuda")
+    truth, phys, cfg = pipe.truth, pipe.phys, pipe.sim_config
+    src = truth["source_light"][0]
+    t0 = time.perf_counter()
+    img_x, img_y, mags = find_images(LensSimulator(phys, cfg, bs=1, device=dev),
+                                     truth["lens_mass"], float(src["center_x"][0]),
+                                     float(src["center_y"][0]))
+    t_find = time.perf_counter() - t0
+    print(f"positions: find_images {t_find:.2f} s: {len(img_x)} images "
+          + ", ".join(f"({x:+.3f}, {y:+.3f}; mu {m:+.2f})"
+                      for x, y, m in zip(img_x, img_y, mags)), flush=True)
+    if len(img_x) < 2:
+        raise AssertionError(f"find_images found {len(img_x)} image(s) of the true source")
+    err = np.full(len(img_x), POS_ERR, np.float32)
+    prob = ForwardProbModel(pipe.prior, pipe.prob_model.observed_image.cpu().numpy(),
+                            background_rms=bench.BKG, exp_time=bench.EXP_TIME,
+                            centroids_x=[img_x], centroids_y=[img_y],
+                            centroids_errors_x=[err], centroids_errors_y=[err], device=dev)
+    seq = ModellingSequence(phys, prob, cfg, device=dev)
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    z_map = seq.MAP(map_optimizer(POS_MAP_STEPS), n_samples=POS_MAP_N,
+                    num_steps=POS_MAP_STEPS, seed=0)
+    torch.cuda.synchronize()
+    t_map = time.perf_counter() - t0
+    res = seq.SMC(start=z_map, num_particles=POS_PARTICLES, num_ensembles=1,
+                  num_leapfrog_steps=3, post_sampling_steps=POS_POST, ess_threshold_ratio=0.6,
+                  max_stage=200, target="pixels+positions", auxiliar="none", seed=1)
+    torch.cuda.synchronize()
+    t_smc = time.perf_counter() - t0 - t_map
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    last = res.post_samples[-1]
+    sim = LensSimulator(phys, cfg, bs=last.shape[0], device=dev)
+    with torch.no_grad():
+        x = prob.prior.constrain(last)
+        chi_pix = float(torch.mean(prob.stats_pixels(sim, x)[1]))
+        chi_pos = float(torch.mean(prob.stats_positions(sim, x)[1]))
+    leapfrogs = (res.num_moves + POS_POST) * 3
+    print(f"positions: MAP {POS_MAP_N} x {POS_MAP_STEPS} in {t_map:.2f} s; SMC {POS_PARTICLES} "
+          f"particles from the MAP subsample, target pixels+positions: {t_smc:.2f} s "
+          f"(tempering {res.tempering_s:.2f} s), {res.num_stages} stages to beta "
+          f"{res.final_beta.tolist()}, {leapfrogs} leapfrogs, "
+          f"{1e3 * t_smc / leapfrogs:.3f} ms/leapfrog, peak device memory {peak:.3f} GiB",
+          flush=True)
+    print(f"positions: posterior red-chi2 (last post draw) pixels {chi_pix:.4f}, positions "
+          f"{chi_pos:.4f}; launches {json.dumps(counts)}", flush=True)
+    if not bool((res.final_beta == 1.0).all()):
+        raise AssertionError(f"positions SMC stopped at beta {res.final_beta.tolist()}")
+    if not (chi_pix <= CHI2_GATE and chi_pos <= CHI2_GATE):
+        raise AssertionError(f"positions SMC posterior red-chi2 pixels {chi_pix}, positions "
+                             f"{chi_pos} (gate {CHI2_GATE})")
+    if not torch.isfinite(res.post_samples).all():
+        raise AssertionError("positions SMC post samples not finite")
+
+
+def pipeline_kernel_checks(pipe, smc_res):
     """K2/K3 at the pipeline's SVI shape (n_vi = 1000 draws from the fitted
-    surrogate, as the SVI phase draws them) and HMC shape (the 50 chains'
-    last states), and the direct K4 both ways at the SVI shape (the K2
-    images and a random cotangent), each against its float64 twin with
-    kernel_checks' tolerances, and timed against its float32 twin with CUDA
-    events."""
+    surrogate, as the SVI phase draws them), HMC shape (the 50 chains' last
+    states) and SMC shape (the 1000 final particles), and the direct K4
+    both ways at the SVI shape (the K2 images and a random cotangent), each
+    against its float64 twin with kernel_checks' tolerances, and timed
+    against its float32 twin with CUDA events."""
     import torch
 
     from gigalens_tpu_torch.ops.cuda import fused_render as fr
@@ -1168,8 +1379,9 @@ def pipeline_kernel_checks(pipe):
     gen = torch.Generator(device=dev).manual_seed(3)
     kernels = []
     for phase, z in (("svi", pipe.q_z.sample(gen, pipe.cfg["vi_n"])),
-                     ("hmc", pipe.hmc_res.samples[-1])):
-        sim = pipe.seq._sim(z.shape[0], exact=phase == "hmc")
+                     ("hmc", pipe.hmc_res.samples[-1]),
+                     ("smc", smc_res.particles.reshape(-1, pipe.prior.d))):
+        sim = pipe.seq._sim(z.shape[0], exact=phase != "svi")
         params = fr.pack_params(pipe.prior.constrain(z)).contiguous()
         bs, x, y, niter = params.shape[0], sim.img_x, sim.img_y, sim._fused_niter
         where = f"{phase.upper()} bs={bs}"
@@ -1200,7 +1412,7 @@ def pipeline_kernel_checks(pipe):
 
         ct = torch.randn(out.shape, generator=gen, device=dev)
         kernels.append(dict(k3_check(params, x, y, ox, oy, ct, niter, where), phase=phase))
-        if phase == "hmc":
+        if phase != "svi":
             continue
 
         conv = sim._conv
@@ -1248,11 +1460,14 @@ def main(argv=()):
     counts = {"bench": main_path(MAP_STEPS), "chain": chain_path(CHAIN_STEPS),
               "S": family_path("S", MAP_STEPS), "L": family_path("L", MAP_STEPS)}
     pipe, rec = pipeline_phase()
-    kernels += pipeline_kernel_checks(pipe)
-    counts.update(svi=rec["svi"]["counts"], hmc=rec["hmc"]["counts"])
+    smc_res = smc_phase(pipe, rec)
+    positions_phase(pipe)
+    kernels += pipeline_kernel_checks(pipe, smc_res)
+    counts.update(svi=rec["svi"]["counts"], hmc=rec["hmc"]["counts"], smc=rec["smc"]["counts"])
     # launches: each kernel's count in the phase of its row (K1-K4 the bench
     # scene's MAP, K5 and K7 family S's, K6 and K7-components family L's;
-    # the rows at the SVI and HMC shapes the pipeline's SVI and HMC phases;
+    # the rows at the SVI, HMC and SMC shapes the pipeline's SVI, HMC and
+    # SMC phases;
     # the chain K4 at the wide PSF the chain MAP phase's, and at the bench
     # shape, where PSFConv takes the direct route, 0)
     out = [

@@ -11,6 +11,12 @@ MAP (500 x 350 steps), FD Laplace + full-rank SVI (n_vi 1000 x 300 steps),
 then serial HMC seeds 2, 3, 4 (50 chains, 250 burn-in + 750 results,
 ChEES), then the posterior red-chi2 of the last draw.
 
+With ``--smc`` the run adds adaptive-tempering SMC on the same scene
+(``scripts/bench_smc.py``'s recipe: 1000 particles x 1 ensemble, 3-leapfrog
+preconditioned moves, ESS threshold 0.6, up to 200 stages, 100 post steps,
+seed 1, prior start, pixels target) and an ``smc`` block in the JSON line;
+the default run's keys and ``value`` are unchanged.
+
 Knobs: ``GIGALENS_BENCH_SCALE`` (tiny | small | full), ``GIGALENS_BENCH_SVI_STEPS``,
 ``GIGALENS_BENCH_HMC_SEEDS`` (comma-separated), ``GIGALENS_EPL_NITER``,
 ``GIGALENS_LAPLACE_METHOD`` (fd | exact), ``GIGALENS_BASELINE_S``.
@@ -44,6 +50,15 @@ CONFIGS = {
                   hmc_n=16, burnin=50, results=100, hmc_seeds=[2]),
     "full": dict(num_pix=80, map_n=500, map_steps=350, vi_n=1000, vi_steps=300,
                  hmc_n=50, burnin=250, results=750, hmc_seeds=[2, 3, 4]),
+}
+# the SMC recipe of scripts/bench_smc.py at each scale
+SMC_CONFIGS = {
+    "tiny": dict(particles=16, ensembles=1, leapfrog_steps=3, ess_threshold_ratio=0.6,
+                 post_steps=4, max_stage=3, seed=1),
+    "small": dict(particles=200, ensembles=1, leapfrog_steps=3, ess_threshold_ratio=0.6,
+                  post_steps=20, max_stage=200, seed=1),
+    "full": dict(particles=1000, ensembles=1, leapfrog_steps=3, ess_threshold_ratio=0.6,
+                 post_steps=100, max_stage=200, seed=1),
 }
 DELTA_PIX, SUPERSAMPLE, BKG, EXP_TIME = 0.065, 2, 0.2, 100.0
 
@@ -152,7 +167,7 @@ class Pipeline:
 
     ``phase_hook(name)``, if given, returns a context manager entered around
     each measured piece: ``map``, ``laplace``, ``svi``, ``hmc`` (once per
-    seed) and ``posterior_chi2``.
+    seed), ``posterior_chi2`` and ``smc``.
     """
 
     def __init__(self, cfg, hmc_seeds=None, device="cuda", phase_hook=None):
@@ -171,7 +186,8 @@ class Pipeline:
         self.prior = bench_prior()
         log(f"device: {self.device}  scale={cfg.get('scale')}  EPL niter={self.niter}")
 
-        truth = self.prior.sample(torch.Generator(device=self.device).manual_seed(42), 1)
+        self.truth = truth = self.prior.sample(
+            torch.Generator(device=self.device).manual_seed(42), 1)
         sim1 = LensSimulator(self.phys, self.sim_config, bs=1, device=self.device)
         with torch.no_grad():
             img = sim1.simulate(truth)
@@ -282,9 +298,44 @@ class Pipeline:
         log(f"posterior mean red-chi2 {self.post_chi2:.3f}")
         self.result["posterior_red_chi2"] = round(self.post_chi2, 4)
 
-    def phases(self):
-        return [("map", self.phase_map), ("svi", self.phase_svi), ("hmc", self.phase_hmc),
-                ("posterior_chi2", self.phase_posterior_chi2)]
+    def phase_smc(self):
+        """Adaptive-tempering SMC from the prior on the exact simulator
+        (``SMC_CONFIGS`` of the configuration's scale); fills the
+        ``smc`` block: walls (tempering and post chain on the host clock),
+        stages, moves, leapfrogs, log-evidence, final beta and the mean
+        reduced chi2 of the post chain's last draw (of the particles when
+        there is no post chain)."""
+        c = SMC_CONFIGS[self.cfg["scale"]]
+        with self.hook("smc"):
+            t0 = time.perf_counter()
+            res = self.seq.SMC(num_particles=c["particles"], num_ensembles=c["ensembles"],
+                               num_leapfrog_steps=c["leapfrog_steps"],
+                               post_sampling_steps=c["post_steps"],
+                               ess_threshold_ratio=c["ess_threshold_ratio"],
+                               max_stage=c["max_stage"], seed=c["seed"])
+            _sync(self.device)
+            wall = time.perf_counter() - t0
+        last = (res.post_samples[-1] if c["post_steps"] > 0
+                else res.particles.reshape(-1, self.prior.d))
+        _, chi2 = self._score(last)
+        self.smc_res = res
+        leapfrogs = (res.num_moves + c["post_steps"]) * c["leapfrog_steps"]
+        block = dict(c, wall_s=round(wall, 3), tempering_s=round(res.tempering_s, 3),
+                     post_s=round(wall - res.tempering_s, 3), stages=res.num_stages,
+                     moves=res.num_moves, leapfrogs=leapfrogs,
+                     ms_per_leapfrog=round(1e3 * wall / max(leapfrogs, 1), 3),
+                     log_evidence=[round(float(v), 4) for v in res.log_evidence],
+                     final_beta=[float(b) for b in res.final_beta],
+                     posterior_red_chi2=round(float(torch.mean(chi2)), 4))
+        log(f"SMC: {wall:.1f}s ({res.tempering_s:.1f}s tempering) stages {res.num_stages} "
+            f"leapfrogs {leapfrogs} logZ {block['log_evidence']} "
+            f"posterior red-chi2 {block['posterior_red_chi2']}")
+        self.result["smc"] = block
+
+    def phases(self, smc=False):
+        out = [("map", self.phase_map), ("svi", self.phase_svi), ("hmc", self.phase_hmc),
+               ("posterior_chi2", self.phase_posterior_chi2)]
+        return out + [("smc", self.phase_smc)] if smc else out
 
 
 def finish(result, failures=()):
@@ -311,16 +362,16 @@ def run_pipeline(cfg, hmc_seeds=None, device="cuda", phase_hook=None) -> Pipelin
     return pipe
 
 
-def main(cfg=None, device="cuda") -> int:
-    """Runs the pipeline with each phase isolated, prints the JSON line, and
-    returns 0 only if every phase completed."""
+def main(cfg=None, device="cuda", smc=False) -> int:
+    """Runs the pipeline (and SMC when ``smc``) with each phase isolated,
+    prints the JSON line, and returns 0 only if every phase completed."""
     cfg = cfg or config_from_env()
     failures = []
     result = new_result(cfg)
     try:
         pipe = Pipeline(cfg, device=device)
         result = pipe.result
-        for name, phase in pipe.phases():
+        for name, phase in pipe.phases(smc):
             try:
                 phase()
             except Exception as e:
@@ -341,7 +392,10 @@ def _cli(argv):
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda", help="torch device (default: cuda)")
-    return main(device=ap.parse_args(argv).device)
+    ap.add_argument("--smc", action="store_true",
+                    help="also run SMC and add its block to the JSON line")
+    args = ap.parse_args(argv)
+    return main(device=args.device, smc=args.smc)
 
 
 if __name__ == "__main__":

@@ -1,13 +1,13 @@
-"""ModellingSequence: the MAP -> Laplace -> SVI -> HMC pipeline facade
-(port of :mod:`gigalens_tpu.inference.sequence`).
+"""ModellingSequence: the MAP -> Laplace -> SVI -> HMC (/ SMC) pipeline
+facade (port of :mod:`gigalens_tpu.inference.sequence`).
 
 Each phase builds its own ``LensSimulator`` with the right batch size, like
 the reference: MAP and SVI on the fast path (fused render and, on the card,
-the dft-mode conv, K4), HMC on the exact path (the FFT conv), the Laplace
-Hessian on the unfused render with the FFT conv. Every phase runs on the
-sequence's device, which is the CUDA card unless the caller names another
-(``device="cpu"``). SMC raises ``NotImplementedError`` naming its ROADMAP
-item (M16); ``fit(checkpoint_dir=...)`` names M19.
+the dft-mode conv, K4), HMC and SMC on the exact path (the FFT conv), the
+Laplace Hessian on the unfused render with the FFT conv. Every phase runs
+on the sequence's device, which is the CUDA card unless the caller names
+another (``device="cpu"``). ``fit(checkpoint_dir=...)`` raises naming its
+ROADMAP item (M19).
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ import torch
 from gigalens_tpu_torch.inference import optim
 from gigalens_tpu_torch.inference.hmc import fit_hmc
 from gigalens_tpu_torch.inference.map import best_start, fit_map, laplace_scale_tril
+from gigalens_tpu_torch.inference.smc import fit_smc
 from gigalens_tpu_torch.inference.optim import GradientTransformation
 from gigalens_tpu_torch.inference.svi import fit_svi
 from gigalens_tpu_torch.model import resolve_device
@@ -173,8 +174,35 @@ class ModellingSequence:
             segment_steps=segment_steps, progress=progress,
         )
 
-    def SMC(self, *args, **kwargs):
-        _not_ported("SMC", "M16")
+    def SMC(
+        self,
+        start=None,
+        num_particles: int = 1000,
+        num_ensembles: int = 1,
+        num_leapfrog_steps: int = 10,
+        post_sampling_steps: int = 100,
+        ess_threshold_ratio: float = 0.8,
+        max_sampling_per_stage: int = 8,
+        max_stage: int = 100,
+        target: str = "pixels",
+        auxiliar: str = "positions",
+        precondition_moves: bool = True,
+        seed: int = 1,
+        segment_stages: int = 0,
+        progress=None,
+    ):
+        """Adaptive-tempering SMC on the exact simulator at bs = P * E;
+        returns an :class:`~gigalens_tpu_torch.inference.smc.SMCResult`."""
+        sim = self._sim(num_particles * num_ensembles, exact=True)
+        return fit_smc(
+            self.prob_model, sim, start=start, num_particles=num_particles,
+            num_ensembles=num_ensembles, num_leapfrog_steps=num_leapfrog_steps,
+            post_sampling_steps=post_sampling_steps,
+            ess_threshold_ratio=ess_threshold_ratio,
+            max_sampling_per_stage=max_sampling_per_stage, max_stage=max_stage,
+            target=target, auxiliar=auxiliar, precondition_moves=precondition_moves,
+            seed=seed, segment_stages=segment_stages, progress=progress,
+        )
 
     def fit(
         self,

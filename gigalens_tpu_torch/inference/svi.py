@@ -151,3 +151,32 @@ def fit_svi(
     with torch.no_grad():
         mean, tril = unpack(qz_params)
     return MultivariateNormalTriL(mean, tril), losses
+
+
+def importance_evidence(prob_model, simulator, q_z, n_samples=4096, seed=0, batch=None,
+                        sample=None):
+    """Importance-sampled log-evidence with the SVI surrogate as proposal:
+    ``log Z = logsumexp(log p(data, z) - log q(z)) - log n`` over draws
+    ``z ~ q``, a cross-check of ``SMCResult.log_evidence``. Trust it only
+    when the returned ``n_eff`` (the importance weights' effective sample
+    size, ``(sum w)^2 / sum w^2``) is well above a few.
+
+    ``simulator`` must be built with ``bs = batch`` (default: ``n_samples``).
+    ``sample(batch) -> (batch, d)`` draws from ``q_z`` (default: ``q_z.sample``
+    on a generator seeded with ``seed`` on the surrogate's device). Returns
+    ``(log_z, n_eff)`` as floats."""
+    batch = batch or n_samples
+    if sample is None:
+        generator = torch.Generator(device=q_z.loc.device).manual_seed(seed)
+        sample = lambda b: q_z.sample(generator, (b,))  # noqa: E731
+    logw = []
+    with torch.no_grad():
+        for _ in range(-(-n_samples // batch)):
+            z = torch.as_tensor(sample(batch), dtype=torch.float32, device=q_z.loc.device)
+            lp, _ = prob_model.log_prob(simulator, z)
+            logw.append(lp - q_z.log_prob(z))  # (batch,) log importance weights
+        logw = torch.cat(logw)[:n_samples]
+        lse = torch.logsumexp(logw, dim=0)
+        log_z = lse - math.log(logw.shape[0] * 1.0)
+        n_eff = torch.exp(2 * lse - torch.logsumexp(2 * logw, dim=0))
+    return float(log_z), float(n_eff)

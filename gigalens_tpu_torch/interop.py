@@ -76,24 +76,28 @@ def _port_profile(prof):
 
 def phys_model_from_reference(phys):
     """The port's equivalent of a ``gigalens_tpu`` PhysicalModel: each
-    profile by class name (with ``niter``, ``n_max`` and ``use_lstsq``), and
-    the same fixed constants."""
+    profile by class name (with ``niter``, ``n_max`` and ``use_lstsq``), the
+    same fixed constants and, for a multi-plane model, its redshifts and
+    its recursion coefficients as they are (whatever cosmology made them)."""
     from gigalens_tpu_torch.model import PhysicalModel
-
-    if getattr(phys, "mp_factors", None) is not None:
-        raise NotImplementedError("multi-plane lensing is not ported yet (ROADMAP M14)")
 
     def consts(cs):
         return [{k: np.array(v) for k, v in d.items()} for d in cs]
 
-    return PhysicalModel(
+    multi = getattr(phys, "mp_factors", None) is not None
+    out = PhysicalModel(
         [_port_profile(p) for p in phys.lenses],
         [_port_profile(p) for p in phys.lens_light],
         [_port_profile(p) for p in phys.source_light],
         lenses_constants=consts(phys.lenses_constants),
         lens_light_constants=consts(phys.lens_light_constants),
         source_light_constants=consts(phys.source_light_constants),
+        lens_redshifts=phys.lens_redshifts if multi else None,
+        z_source=phys.z_source if multi else None,
     )
+    if multi:
+        out.mp_factors = np.array(phys.mp_factors, np.float32)
+    return out
 
 
 def sim_config_from_reference(cfg) -> SimulatorConfig:

@@ -2,8 +2,8 @@
 
 * :class:`PhysicalModel` bundles mass/light profile lists and fixed constants.
 * :class:`ForwardProbModel` scores pixels with the forward-modeled
-  Gaussian+Poisson noise map. The position, time-delay and flux
-  likelihoods are not ported yet (ROADMAP M14) and raise.
+  Gaussian+Poisson noise map, and/or multiple-image positions, with
+  optional point-source time delays and image fluxes.
 * :class:`BackwardProbModel` scores pixels with the observed-image noise
   map and linear (lstsq) light amplitudes.
 
@@ -20,6 +20,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from gigalens_tpu_torch.cosmology import FlatLambdaCDM, multiplane_factors
 from gigalens_tpu_torch.prob.prior import Prior
 from gigalens_tpu_torch.profiles.base import LightProfile, MassProfile
 
@@ -50,7 +51,13 @@ class PhysicalModel(VersionedAttrs):
 
     Constants are per-profile dicts of parameters excluded from inference,
     kept as float32 CPU tensors; the simulator moves them to its device.
-    Multi-plane lensing (``lens_redshifts``) is not ported yet.
+
+    Multi-plane lensing: pass ``lens_redshifts`` (one per deflector,
+    ascending) and ``z_source`` to ray-trace through deflectors at
+    different distances (``LensSimulator.beta`` runs the recursion with the
+    coefficients of :func:`gigalens_tpu_torch.cosmology.multiplane_factors`;
+    profiles keep their source-plane-reduced parameterization). Deflectors
+    at equal redshift co-add exactly as in single-plane mode.
     """
 
     def __init__(
@@ -62,11 +69,9 @@ class PhysicalModel(VersionedAttrs):
         lens_light_constants: Optional[List[Dict]] = None,
         source_light_constants: Optional[List[Dict]] = None,
         lens_redshifts=None,
+        z_source: Optional[float] = None,
+        cosmology=None,
     ):
-        if lens_redshifts is not None:
-            raise NotImplementedError(
-                "multi-plane lensing is not ported yet (ROADMAP M14)"
-            )
         self.lenses = list(lenses)
         self.lens_light = list(lens_light)
         self.source_light = list(source_light)
@@ -83,12 +88,48 @@ class PhysicalModel(VersionedAttrs):
         self.lens_light_constants = _conv(lens_light_constants, lens_light)
         self.source_light_constants = _conv(source_light_constants, source_light)
 
+        if lens_redshifts is not None:
+            if z_source is None:
+                raise ValueError("lens_redshifts requires z_source")
+            if len(lens_redshifts) != len(self.lenses):
+                raise ValueError(
+                    f"need one redshift per deflector: "
+                    f"{len(lens_redshifts)} vs {len(self.lenses)} lenses"
+                )
+            self.mp_factors = multiplane_factors(
+                lens_redshifts, z_source, cosmology).astype(np.float32)
+            self.lens_redshifts = [float(z) for z in lens_redshifts]
+            self.z_source = float(z_source)
+        else:
+            self.mp_factors = None
+
+
+# days per (Mpc * arcsec^2): the Fermat-potential -> time-delay conversion
+# Delta_t = _TD_DAYS * D_dt[Mpc] * Delta_tau[arcsec^2]
+_MPC_KM = 3.085677581491367e19
+_ARCSEC_RAD = math.pi / (180.0 * 3600.0)
+_TD_DAYS = _MPC_KM / 299792.458 * _ARCSEC_RAD**2 / 86400.0
+
+
+def _clamped_det(simulator, cx, cy, lens_params):
+    """|det A| of the lens mapping at (cx, cy), clamped to [1e-3, 1e3].
+
+    Formed from the Hessian, never as 1/mu: a candidate lens that puts a
+    centroid on its critical curve has det = 0, where 1/det is inf and even
+    a clipped |1/det| leaves a 0 * inf NaN in the backward pass; det itself
+    is a finite polynomial of the Hessian, so the clamp gives a finite value
+    and gradient everywhere. The bounds are far outside any physical
+    strong-lensing magnification."""
+    f_xx, f_xy, f_yx, f_yy = simulator.hessian(cx, cy, lens_params)
+    det_a = (1 - f_xx) * (1 - f_yy) - f_xy * f_yx
+    return torch.clamp(torch.abs(det_a), 1e-3, 1e3)
+
 
 class _SamplerFacade:
     """What the inference routines read off a probabilistic model besides its
     log-density, as in the JAX package: the likelihood terms it includes
-    (the SMC selector reads them; pixels only until the position likelihood
-    is ported), ``init_centroids``, ``log_prior`` and ``bij``."""
+    (the SMC selector reads them), ``init_centroids``, ``log_prior`` and
+    ``bij``. A model without data for a term leaves these class defaults."""
 
     include_pixels = True
     include_positions = False
@@ -113,12 +154,18 @@ class _SamplerFacade:
 
 
 class ForwardProbModel(VersionedAttrs, _SamplerFacade):
-    """Forward-modeled pixel likelihood.
+    """Forward-modeled likelihood over pixels and/or multiple-image
+    positions, optionally with point-source time delays and image fluxes.
 
-    ``observed_image`` and the noise settings are stored as float32 tensors
-    on ``device`` (``None``: the CUDA card, see :func:`resolve_device`).
-    Pass ``error_map`` for a fixed noise map, or ``background_rms`` and
-    ``exp_time`` for the model-based Gaussian+Poisson map.
+    Data are stored as float32 tensors on ``device`` (``None``: the CUDA
+    card, see :func:`resolve_device`). Pixels: pass ``error_map`` for a
+    fixed noise map, or ``background_rms`` and ``exp_time`` for the
+    model-based Gaussian+Poisson map. Positions: ``centroids_*`` are lists
+    of groups, one array of image coordinates (and their errors) a group.
+    Delays (relative to the first image) and fluxes attach to exactly one
+    centroid group; the time-delay distance is ``time_delay_distance``,
+    or computed from ``(z_lens, z_source)`` and the cosmology, or sampled
+    from a ``cosmo=[dict(D_dt=...)]`` prior group.
     """
 
     def __init__(
@@ -129,38 +176,111 @@ class ForwardProbModel(VersionedAttrs, _SamplerFacade):
         exp_time=None,
         error_map=None,
         centroids_x=None,
+        centroids_y=None,
+        centroids_errors_x=None,
+        centroids_errors_y=None,
+        include_pixels=None,
+        include_positions=None,
         delays=None,
+        delay_errors=None,
+        time_delay_distance=None,
+        z_lens=None,
+        z_source=None,
+        cosmology=None,
         image_fluxes=None,
+        image_flux_errors=None,
         device=None,
     ):
-        if centroids_x is not None or delays is not None or image_fluxes is not None:
-            raise NotImplementedError(
-                "position, time-delay and flux likelihoods are not ported yet "
-                "(ROADMAP M14)"
-            )
-        if observed_image is None:
-            raise ValueError("the port's ForwardProbModel scores pixels: "
-                             "pass observed_image")
         self.prior = prior
         self.device = resolve_device(device)
+        # auto-detected from the data unless toggled explicitly
+        if include_pixels is None:
+            include_pixels = observed_image is not None or error_map is not None
+        if include_positions is None:
+            include_positions = centroids_x is not None
+        self.include_pixels = bool(include_pixels)
+        self.include_positions = bool(include_positions)
+        self.include_delays = delays is not None
+        self.include_fluxes = image_fluxes is not None
 
         def f32(v):
             return torch.as_tensor(np.asarray(v, np.float32), device=self.device)
 
-        self.observed_image = f32(observed_image)
+        self.observed_image = None
         self.error_map = None
         self.background_rms = None
         self.exp_time = None
-        if error_map is not None:
-            self.error_map = f32(error_map)
-        else:
-            # float32-rounded Python scalars, like the JAX package's jnp.float32
-            self.background_rms = float(np.float32(background_rms))
-            self.exp_time = float(np.float32(exp_time))
+        if self.include_pixels:
+            self.observed_image = f32(observed_image)
+            if error_map is not None:
+                self.error_map = f32(error_map)
+            else:
+                # float32-rounded Python scalars, like the JAX package's jnp.float32
+                self.background_rms = float(np.float32(background_rms))
+                self.exp_time = float(np.float32(exp_time))
+
+        self.n_position = 0
+        if self.include_positions:
+            self.centroids_x = [f32(c) for c in centroids_x]
+            self.centroids_y = [f32(c) for c in centroids_y]
+            self.centroids_errors_x = [f32(c) for c in centroids_errors_x]
+            self.centroids_errors_y = [f32(c) for c in centroids_errors_y]
+            self.n_position = 2 * int(sum(np.size(np.asarray(c)) for c in centroids_x))
+
+        if self.include_delays or self.include_fluxes:
+            if centroids_x is None or len(centroids_x) != 1:
+                raise ValueError(
+                    "time delays / image fluxes attach to the observed image "
+                    "positions: pass exactly one centroids group"
+                )
+            n_img = int(np.size(np.asarray(centroids_x[0])))
+        if self.include_delays:
+            self.delays = f32(delays).reshape(-1)
+            self.delay_errors = f32(delay_errors).reshape(-1)
+            if self.delays.shape[0] != n_img - 1:
+                raise ValueError(
+                    f"delays are relative to the first image: expected "
+                    f"{n_img - 1} values for {n_img} images, got "
+                    f"{self.delays.shape[0]}"
+                )
+            # D_dt: the explicit value; else (z_lens, z_source) through the
+            # cosmology; else sampled from a cosmo=[dict(D_dt=...)] group
+            if time_delay_distance is not None:
+                self.time_delay_distance = float(time_delay_distance)
+            elif z_lens is not None and z_source is not None:
+                cosmo = cosmology if cosmology is not None else FlatLambdaCDM()
+                dl = cosmo.angular_diameter_distance(z_lens)
+                ds = cosmo.angular_diameter_distance(z_source)
+                dls = cosmo.angular_diameter_distance(z_lens, z_source)
+                self.time_delay_distance = (1.0 + z_lens) * dl * ds / dls
+            elif isinstance(prior.tree, dict) and "cosmo" in prior.tree:
+                self.time_delay_distance = None  # sampled
+            else:
+                raise ValueError(
+                    "delays need a time-delay distance: pass "
+                    "time_delay_distance, or (z_lens, z_source), or sample "
+                    "it via a cosmo=[dict(D_dt=...)] prior group"
+                )
+        if self.include_fluxes:
+            self.image_fluxes = f32(image_fluxes).reshape(-1)
+            self.image_flux_errors = f32(image_flux_errors).reshape(-1)
+            if self.image_fluxes.shape[0] != n_img:
+                raise ValueError(
+                    f"expected {n_img} image fluxes, got {self.image_fluxes.shape[0]}"
+                )
 
     def event_size(self, simulator) -> int:
         """Number of observed scalars; normalizes the MAP loss."""
-        return simulator.n_live_pix
+        n = 0
+        if self.include_pixels:
+            n += simulator.n_live_pix
+        if self.include_positions:
+            n += self.n_position
+        if self.include_delays:
+            n += int(self.delays.shape[0])
+        if self.include_fluxes:
+            n += int(self.image_fluxes.shape[0])
+        return n
 
     def stats_pixels(self, simulator, params):
         """(log_like, reduced_chi2) of the pixel data for constrained params."""
@@ -183,15 +303,89 @@ class ForwardProbModel(VersionedAttrs, _SamplerFacade):
         log_like = -0.5 * (chi2 + normalization)
         return log_like, chi2 / simulator.n_live_pix
 
+    def stats_positions(self, simulator, params):
+        """(log_like, reduced_chi2) of multiple-image positions: the
+        centroids are ray-traced to the source plane and their spread about
+        the barycentre is penalized with magnification-scaled errors
+        ``centroid_err * |det A|`` (the clamped |det A| of
+        :func:`_clamped_det`)."""
+        lens_params = params["lens_mass"]
+        chi2 = 0.0
+        log_like = 0.0
+        for cx, cy, cex, cey in zip(self.centroids_x, self.centroids_y,
+                                    self.centroids_errors_x, self.centroids_errors_y):
+            beta_x, beta_y = simulator.beta(cx, cy, lens_params)  # (bs, n_img)
+            beta = torch.stack([beta_x, beta_y], dim=-2)  # (bs, 2, n_img)
+            barycentre = torch.mean(beta, dim=-1, keepdim=True)
+            det_abs = _clamped_det(simulator, cx, cy, lens_params)
+            err = torch.stack([cex * det_abs, cey * det_abs], dim=-2)  # (bs, 2, n_img)
+            chi2_i = torch.sum(((beta - barycentre) / err) ** 2, dim=(-2, -1))
+            norm_i = torch.sum(torch.log(2 * math.pi * err**2), dim=(-2, -1))
+            log_like = log_like + (-0.5) * (chi2_i + norm_i)
+            chi2 = chi2 + chi2_i
+        return log_like, chi2 / self.n_position
+
+    def stats_time_delays(self, simulator, params):
+        """(log_like, reduced_chi2) of the relative time delays: Fermat
+        potentials at the observed images with the source at the ray-traced
+        barycentre, relative to the first image; ``D_dt`` fixed or read per
+        sample from ``params["cosmo"][0]["D_dt"]``."""
+        cx, cy = self.centroids_x[0], self.centroids_y[0]
+        lens_params = params["lens_mass"]
+        beta_x, beta_y = simulator.beta(cx, cy, lens_params)  # (bs, n)
+        bxm = torch.mean(beta_x, dim=-1, keepdim=True)
+        bym = torch.mean(beta_y, dim=-1, keepdim=True)
+        tau = simulator.fermat_potential(cx, cy, lens_params, bxm, bym)
+        if self.time_delay_distance is not None:
+            d_dt = float(np.float32(self.time_delay_distance))
+        else:
+            d_dt = torch.reshape(params["cosmo"][0]["D_dt"], (-1, 1))
+        dt_model = _TD_DAYS * d_dt * (tau[..., 1:] - tau[..., :1])
+        resid = (dt_model - self.delays) / self.delay_errors
+        chi2 = torch.sum(resid**2, dim=-1)
+        norm = torch.sum(torch.log(2 * math.pi * self.delay_errors**2))
+        return -0.5 * (chi2 + norm), chi2 / self.delays.shape[0]
+
+    def stats_fluxes(self, simulator, params):
+        """(log_like, reduced_chi2) of the point-source image fluxes: model
+        flux ``A |mu(theta_i)|`` with the unlensed flux ``A`` solved per
+        sample by weighted least squares, |mu| from the clamped |det A|."""
+        cx, cy = self.centroids_x[0], self.centroids_y[0]
+        mu = 1.0 / _clamped_det(simulator, cx, cy, params["lens_mass"])  # (bs, n)
+        w = 1.0 / self.image_flux_errors**2
+        amp = torch.sum(w * self.image_fluxes * mu, dim=-1) / torch.clamp(
+            torch.sum(w * mu * mu, dim=-1), min=1e-20)
+        resid = (amp[..., None] * mu - self.image_fluxes) / self.image_flux_errors
+        chi2 = torch.sum(resid**2, dim=-1)
+        norm = torch.sum(torch.log(2 * math.pi * self.image_flux_errors**2))
+        return -0.5 * (chi2 + norm), chi2 / self.image_fluxes.shape[0]
+
+    def _terms(self):
+        return [f for on, f in ((self.include_pixels, self.stats_pixels),
+                                (self.include_positions, self.stats_positions),
+                                (self.include_delays, self.stats_time_delays),
+                                (self.include_fluxes, self.stats_fluxes)) if on]
+
     def log_prob(self, simulator, z):
-        """Unconstrained log posterior and reduced chi2; z shaped (bs, d)."""
+        """Unconstrained log posterior and reduced chi2 (the mean over the
+        included terms); z shaped (bs, d)."""
         x = self.prior.constrain(z)
-        log_like, red_chi2 = self.stats_pixels(simulator, x)
+        log_like = torch.zeros(z.shape[:-1], dtype=z.dtype, device=z.device)
+        red_chi2 = torch.zeros(z.shape[:-1], dtype=z.dtype, device=z.device)
+        terms = self._terms()
+        for stats in terms:
+            ll, rc = stats(simulator, x)
+            log_like, red_chi2 = log_like + ll, red_chi2 + rc
+        red_chi2 = red_chi2 / max(len(terms), 1)
         log_prior = self.prior.log_prob(x) + self.prior.fldj(z)
         return log_like + log_prior, red_chi2
 
     def log_like(self, simulator, z):
-        return self.stats_pixels(simulator, self.prior.constrain(z))[0]
+        x = self.prior.constrain(z)
+        total = torch.zeros(z.shape[:-1], dtype=z.dtype, device=z.device)
+        for stats in self._terms():
+            total = total + stats(simulator, x)[0]
+        return total
 
 
 class BackwardProbModel(VersionedAttrs, _SamplerFacade):
@@ -224,7 +418,7 @@ class BackwardProbModel(VersionedAttrs, _SamplerFacade):
     def stats_positions(self, simulator, params):
         raise NotImplementedError(
             "BackwardProbModel has no multiple-image position likelihood; "
-            "use ForwardProbModel for position terms (ROADMAP M14)"
+            "use ForwardProbModel(include_positions=True) for position terms"
         )
 
     def log_prob(self, simulator, z):

@@ -4,8 +4,13 @@ Mass profiles expose ``deriv(x, y, **params) -> (alpha_x, alpha_y)``; light
 profiles expose ``light(x, y, **params)``. Coordinates and per-sample
 parameters only need to be mutually broadcastable: the simulator calls
 profiles with coordinates shaped ``(npix,)`` and parameters shaped
-``(bs, 1)``, giving batch-leading ``(bs, npix)`` outputs. The Hessian helpers
-are not ported yet.
+``(bs, 1)``, giving batch-leading ``(bs, npix)`` outputs.
+
+The default ``hessian`` is forward mode (``torch.func.jvp``) where ``deriv``
+is plain tensor ops; a profile whose ``deriv`` crosses an
+``autograd.Function`` (EPL) takes :meth:`MassProfile.hessian_vjp`, two
+reverse-mode ``torch.autograd.grad`` calls with ``create_graph=True``, so
+both stay differentiable in the parameters.
 """
 from __future__ import annotations
 
@@ -38,6 +43,81 @@ class MassProfile(Parameterized, ABC):
     @abstractmethod
     def deriv(self, x, y, **params):
         """Deflection angle (alpha_x, alpha_y) at image-plane coords (x, y)."""
+
+    def hessian(self, x, y, **params):
+        """Deflection Jacobian (f_xx, f_xy, f_yx, f_yy) by forward mode.
+
+        Profiles with closed forms override this (SIS, Shear, NFW); a
+        profile whose ``deriv`` crosses an ``autograd.Function`` (EPL)
+        overrides it with :meth:`hessian_vjp`."""
+        x, y = torch.as_tensor(x), torch.as_tensor(y)
+
+        def f(xx, yy):
+            return torch.stack(self.deriv(xx, yy, **params))
+
+        ones, zeros = torch.ones_like(x), torch.zeros_like(y)
+        _, (f_xx, f_yx) = torch.func.jvp(f, (x, y), (ones, zeros))
+        _, (f_xy, f_yy) = torch.func.jvp(f, (x, y), (zeros, ones))
+        return f_xx, f_xy, f_yx, f_yy
+
+    def hessian_vjp(self, x, y, **params):
+        """Reverse-mode Hessian (the reference's VJP-basis trick): two
+        ``torch.autograd.grad`` calls with ``create_graph=True``, so the
+        result stays differentiable in the parameters through an
+        ``autograd.Function``'s differentiable backward.
+
+        The coordinates are first broadcast to the output's shape, so each
+        output element has a coordinate of its own and the rows are exact
+        per sample. (The JAX package differentiates the unbroadcast
+        coordinates, which sums the Hessian over the batch when the
+        parameters carry one; ROADMAP F-ref-5.)"""
+        x, y = torch.as_tensor(x), torch.as_tensor(y)
+        shape = torch.broadcast_shapes(x.shape, y.shape,
+                                       *(torch.as_tensor(v).shape for v in params.values()))
+        keep_graph = _needs_graph(x, y, *params.values())
+        with torch.enable_grad():
+            xb, yb = (_grad_leaf(torch.broadcast_to(c, shape)) for c in (x, y))
+            fx, fy = self.deriv(xb, yb, **params)
+            ones, zeros = torch.ones_like(fx), torch.zeros_like(fx)
+            f_xx, f_yx = torch.autograd.grad((fx, fy), (xb, yb), (ones, zeros),
+                                             create_graph=True, allow_unused=True)
+            f_xy, f_yy = torch.autograd.grad((fx, fy), (xb, yb), (zeros, ones),
+                                             create_graph=True, allow_unused=True)
+        out = tuple(torch.zeros_like(fx) if g is None else g
+                    for g in (f_xx, f_xy, f_yx, f_yy))
+        return out if keep_graph else tuple(g.detach() for g in out)
+
+    def potential(self, x, y, **params):
+        """Lensing potential ``psi`` with ``grad(psi) == deriv``; needed only
+        for time delays (the Fermat potential)."""
+        raise NotImplementedError(
+            f"{self.name} does not implement the lensing potential; time "
+            "delays require potential() on every deflector in the model"
+        )
+
+    def convergence(self, x, y, **params):
+        f_xx, _, _, f_yy = self.hessian(x, y, **params)
+        return (f_xx + f_yy) / 2
+
+    def shear(self, x, y, **params):
+        f_xx, f_xy, _, f_yy = self.hessian(x, y, **params)
+        return (f_xx - f_yy) / 2, f_xy
+
+
+def _needs_graph(*values):
+    """Whether a result computed from ``values`` must carry a graph: grad
+    mode is on and some value requires grad."""
+    return torch.is_grad_enabled() and any(
+        isinstance(v, torch.Tensor) and v.requires_grad for v in values)
+
+
+def _grad_leaf(t):
+    """``t`` as a tensor that autograd can differentiate with respect to:
+    itself (through a copy) when it already carries a graph, else a fresh
+    leaf."""
+    if t.requires_grad:
+        return t * 1.0
+    return t.detach().clone().requires_grad_(True)
 
 
 class LightProfile(Parameterized, ABC):
@@ -83,6 +163,18 @@ def rotate(x, y, phi):
     """Rotates coordinates by angle -phi (the lensing-standard frame change)."""
     cos_phi, sin_phi = torch.cos(phi), torch.sin(phi)
     return x * cos_phi + y * sin_phi, -x * sin_phi + y * cos_phi
+
+
+def hessian_rotate(f_xx, f_xy, f_yy, phi):
+    """Transforms a symmetric Hessian back through ``rotate``: R H R^T."""
+    cos_2phi = torch.cos(2 * phi)
+    sin_2phi = torch.sin(2 * phi)
+    a = 0.5 * (f_xx + f_yy)
+    b = 0.5 * (f_xx - f_yy) * cos_2phi
+    c = f_xy * sin_2phi
+    d = f_xy * cos_2phi
+    e = 0.5 * (f_xx - f_yy) * sin_2phi
+    return a + b + c, d - e, a - b - c
 
 
 def ellipticity_to_polar(e1, e2, e_max=0.9999):

@@ -141,5 +141,21 @@ class EPL(MassProfile):
         f = (1 - q) / (1 + q)
         omega_x, omega_y = omega_cs(cos_t, sin_t, f, t, self.niter)
 
-        prefac = (2 * b) / (1 + q) * (b / R) ** (t - 1)
+        # (b/R)^(t-1) as exp((t-1) log(b/R)): torch's pow backward masks the
+        # base's derivative to 0 where the exponent is 0, which drops its
+        # derivative in the exponent, so the mixed second derivative (the
+        # Hessian's gamma gradient) came out wrong at gamma = 2 exactly
+        # (ROADMAP F-port-8)
+        prefac = (2 * b) / (1 + q) * torch.exp((t - 1) * torch.log(b / R))
         return rotate(prefac * omega_x, prefac * omega_y, -phi)
+
+    def potential(self, x, y, theta_E, gamma, e1, e2, center_x, center_y):
+        """Euler identity for the power-law family: the deflection is
+        homogeneous of degree ``2 - gamma`` in the centered coords, so
+        ``psi = x~ . alpha / (3 - gamma)`` exactly (Tessore & Metcalf 2015)."""
+        fx, fy = self.deriv(x, y, theta_E, gamma, e1, e2, center_x, center_y)
+        return ((x - center_x) * fx + (y - center_y) * fy) / (3.0 - gamma)
+
+    def hessian(self, x, y, **params):
+        # forward mode cannot cross _OmegaCS; use the reverse basis
+        return self.hessian_vjp(x, y, **params)

@@ -1,10 +1,11 @@
-"""NFW-family deflectors (port of :mod:`gigalens_tpu.profiles.mass.nfw`,
-``deriv`` of NFW and NFW_ELLIPSE only).
+"""NFW-family deflectors (port of :mod:`gigalens_tpu.profiles.mass.nfw`:
+NFW and NFW_ELLIPSE).
 
-Wright & Brainerd (2000) g(x). Every piecewise function is a total
-``torch.where`` with branch-safe inputs, so values and gradients stay finite
-everywhere. TNFW, ``_nfw_h``/``_nfw_f`` and the hessians are not ported yet
-(ROADMAP M12, M14).
+Wright & Brainerd (2000) g(x), h(x) and F(x). Every piecewise function is a
+total ``torch.where`` with branch-safe inputs, so values and gradients stay
+finite everywhere. NFW has closed-form ``potential`` and ``hessian``;
+NFW_ELLIPSE takes the forward-mode default Hessian. TNFW is not ported yet
+(ROADMAP M12).
 """
 from __future__ import annotations
 
@@ -19,10 +20,20 @@ _X_MIN = 1e-6
 
 # Near the branch point x = 1 both closed forms cancel catastrophically in
 # float32; within |x-1| < delta the two-sided Taylor series at x = 1 takes
-# over: g = (1 - log 2) + t/3 - t^2/30 - t^3/105 + 17 t^4/1260 (t = x-1).
+# over: g = (1 - log 2) + t/3 - t^2/30 - t^3/105 + 17 t^4/1260 and
+# F = 1/3 - 2/5 t + 13/35 t^2 - 20/63 t^3 + 61/231 t^4 (t = x-1).
 _BRANCH_DELTA = 0.03
 _SMALL_X = 0.05
+_F_SERIES = (1 / 3, -2 / 5, 13 / 35, -20 / 63, 61 / 231)
 _G_SERIES = (0.30685281944005469, 1 / 3, -1 / 30, -1 / 105, 17 / 1260)
+# h(1) = ln^2(2)/2, then the cumulative integral of the g(u)/u Cauchy product
+_H_SERIES = (
+    0.2402265069591007,
+    0.30685281944005469,
+    0.013240256946639322,
+    -0.019937975181398853,
+    0.012572504860063681,
+)
 
 
 def _horner(t, coeffs):
@@ -64,6 +75,32 @@ def _nfw_g(x):
     )
 
 
+def _nfw_h(x):
+    """h(x) with dh/dx = g(x)/x, the NFW potential's shape; h(1) = ln^2(2)/2."""
+    x = torch.clamp(x, min=_X_MIN)
+    near = torch.abs(x - 1.0) < _BRANCH_DELTA
+    x_lo, x_hi = _branch_inputs(x)
+    lo = 0.5 * torch.log(x / 2.0) ** 2 - 0.5 * torch.arccosh(1.0 / x_lo) ** 2
+    hi = 0.5 * torch.log(x / 2.0) ** 2 + 0.5 * torch.arccos(1.0 / x_hi) ** 2
+    series = _horner(x - 1.0, _H_SERIES)
+    return torch.where(near, series, torch.where(x < 1, lo, hi))
+
+
+def _nfw_f(x):
+    """F(x), the convergence shape function; F(1) = 1/3."""
+    x = torch.clamp(x, min=_X_MIN)
+    near = torch.abs(x - 1.0) < _BRANCH_DELTA
+    x_lo, x_hi = _branch_inputs(x)
+    lo = 1.0 / (x_lo**2 - 1.0) * (
+        1.0 - 2.0 / torch.sqrt(1.0 - x_lo**2)
+        * torch.arctanh(torch.sqrt((1.0 - x_lo) / (1.0 + x_lo))))
+    hi = 1.0 / (x_hi**2 - 1.0) * (
+        1.0 - 2.0 / torch.sqrt(x_hi**2 - 1.0)
+        * torch.arctan(torch.sqrt((x_hi - 1.0) / (1.0 + x_hi))))
+    series = _horner(x - 1.0, _F_SERIES)
+    return torch.where(near, series, torch.where(x < 1, lo, hi))
+
+
 class NFW(MassProfile):
     _name = "NFW"
     _params = ["Rs", "alpha_Rs", "center_x", "center_y"]
@@ -85,6 +122,27 @@ class NFW(MassProfile):
         dx, dy = x - center_x, y - center_y
         R = torch.sqrt(dx**2 + dy**2)
         return self._alpha_radial(R, Rs, rho0, dx, dy)
+
+    def potential(self, x, y, Rs, alpha_Rs, center_x, center_y):
+        rho0 = self._rho0(Rs, alpha_Rs)
+        Rs = torch.clamp(torch.as_tensor(Rs), min=_R_MIN)
+        dx, dy = x - center_x, y - center_y
+        R = torch.clamp(torch.sqrt(dx**2 + dy**2), min=_R_MIN)
+        return 4.0 * rho0 * Rs**3 * _nfw_h(R / Rs)
+
+    def hessian(self, x, y, Rs, alpha_Rs, center_x, center_y):
+        rho0 = self._rho0(Rs, alpha_Rs)
+        Rs = torch.clamp(torch.as_tensor(Rs), min=_R_MIN)
+        dx, dy = x - center_x, y - center_y
+        R = torch.clamp(torch.sqrt(dx**2 + dy**2), min=_X_MIN)
+        X = R / Rs
+        gx = _nfw_g(X)
+        fx = _nfw_f(X)
+        kappa = 2.0 * rho0 * Rs * fx
+        a = 2.0 * rho0 * Rs * (2.0 * gx / X**2 - fx)
+        gamma1 = a * (dy**2 - dx**2) / R**2
+        gamma2 = -a * 2.0 * dx * dy / R**2
+        return kappa + gamma1, gamma2, gamma2, kappa - gamma1
 
 
 class NFW_ELLIPSE(MassProfile):

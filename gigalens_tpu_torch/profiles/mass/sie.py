@@ -1,8 +1,8 @@
 """Singular isothermal ellipsoid (SIE) and sphere (SIS) deflectors (port of
-:mod:`gigalens_tpu.profiles.mass.sie`, ``deriv`` only).
+:mod:`gigalens_tpu.profiles.mass.sie`).
 
-Closed forms of Kormann et al. (1994). NIE, ``potential`` and ``hessian``
-are not ported yet (ROADMAP M12, M14).
+Closed forms of Kormann et al. (1994). The SIS carries an analytic Hessian;
+the SIE's is the forward-mode default. NIE is not ported yet (ROADMAP M12).
 """
 from __future__ import annotations
 
@@ -41,6 +41,12 @@ class SIE(MassProfile):
         _, q, phi = ellipticity_to_polar(e1, e2)
         return _kormann_deriv(x, y, theta_E, q, phi, self.s_scale, center_x, center_y)
 
+    def potential(self, x, y, theta_E, e1, e2, center_x, center_y):
+        """Euler identity: the singular isothermal deflection is homogeneous
+        of degree 0 in the centered coords, so ``psi = x~ . alpha`` exactly."""
+        fx, fy = self.deriv(x, y, theta_E, e1, e2, center_x, center_y)
+        return (x - center_x) * fx + (y - center_y) * fy
+
 
 class SIS(MassProfile):
     _name = "SIS"
@@ -53,3 +59,18 @@ class SIS(MassProfile):
         zero = r == 0
         a = torch.where(zero, torch.zeros_like(r), theta_E / torch.where(zero, torch.ones_like(r), r))
         return a * dx, a * dy
+
+    def potential(self, x, y, theta_E, center_x, center_y):
+        dx, dy = x - center_x, y - center_y
+        return theta_E * torch.sqrt(dx**2 + dy**2)
+
+    def hessian(self, x, y, theta_E, center_x, center_y):
+        dx, dy = x - center_x, y - center_y
+        r3 = (dx**2 + dy**2) ** 1.5
+        zero = r3 == 0
+        a = torch.where(zero, torch.zeros_like(r3),
+                        theta_E / torch.where(zero, torch.ones_like(r3), r3))
+        f_xx = dy**2 * a
+        f_yy = dx**2 * a
+        f_xy = -dx * dy * a
+        return f_xx, f_xy, f_xy, f_yy

@@ -13,12 +13,17 @@ Two fused tiers render the whole flat light on a CUDA device, as in JAX:
 the [EPL|SIE, Shear] + SersicEllipse family runs K1-K3
 (``ops/cuda/fused_render.py``), every other composition the builder covers
 (shapelets, SIS, CoreSersic, NFW halos, baked constants, lstsq component
-stacks) runs K5-K7 (``ops/cuda/fused_builder.py``). Not ported yet:
-multi-plane ray tracing, the lensing-field helpers (hessian,
-magnification, potential) and scene-batched (survey) lstsq data.
+stacks) runs K5-K7 (``ops/cuda/fused_builder.py``). A multi-plane model
+takes neither tier and renders unfused. Not ported yet: scene-batched
+(survey) PSF stacks and lstsq data (ROADMAP M17).
+
+The lensing fields (:meth:`LensSimulator.beta`, ``hessian``, ``potential``,
+``fermat_potential``, ``magnification``, ``convergence``, ``shear``) take
+coordinates of any shape that broadcast against the ``(bs, 1)`` leaves.
 """
 from __future__ import annotations
 
+import copy
 from typing import Dict, List
 
 import numpy as np
@@ -29,6 +34,7 @@ from gigalens_tpu_torch.config import LensWCS, SimulatorConfig
 from gigalens_tpu_torch.ops.cuda import fused_builder
 from gigalens_tpu_torch.ops.cuda.fused_render import fused_render, pack_params
 from gigalens_tpu_torch.ops.psf import PSFConv, average_pool, subgrid_kernel
+from gigalens_tpu_torch.profiles.base import _grad_leaf, _needs_graph
 from gigalens_tpu_torch.profiles.light.sersic import SersicEllipse
 from gigalens_tpu_torch.profiles.mass.epl import EPL
 from gigalens_tpu_torch.profiles.mass.shear import Shear
@@ -179,12 +185,97 @@ class LensSimulator(gmodel.VersionedAttrs):
         return pm.lenses[0].niter
 
     def beta(self, x, y, lens_params: List[Dict]):
-        """Ray-shoots image-plane coords to the source plane (single plane)."""
+        """Ray-shoots image-plane coords to the source plane.
+
+        Single plane: subtract every deflector's reduced deflection at the
+        image-plane coords. Multi-plane (``phys_model.mp_factors`` set): each
+        deflector is evaluated at the ray's position on its own plane,
+        displaced by the scaled deflections of every foreground plane
+        (``F[k, j] == 0`` between equal redshifts, which co-add)."""
+        pm = self.phys_model
+        F = getattr(pm, "mp_factors", None)
+        if F is None:
+            beta_x, beta_y = x, y
+            for lens, p, c in zip(pm.lenses, lens_params, self._lenses_constants):
+                fx, fy = lens.deriv(x, y, **_batched(p), **c)
+                beta_x, beta_y = beta_x - fx, beta_y - fy
+            return beta_x, beta_y
+
+        ax, ay = [], []
+        for j, (lens, p, c) in enumerate(zip(pm.lenses, lens_params, self._lenses_constants)):
+            tx, ty = x, y
+            for k in range(j):
+                fkj = float(F[k, j])  # baked float32 constants
+                if fkj != 0.0:
+                    tx = tx - fkj * ax[k]
+                    ty = ty - fkj * ay[k]
+            fx, fy = lens.deriv(tx, ty, **_batched(p), **c)
+            ax.append(fx)
+            ay.append(fy)
         beta_x, beta_y = x, y
-        for lens, p, c in zip(self.phys_model.lenses, lens_params, self._lenses_constants):
-            fx, fy = lens.deriv(x, y, **_batched(p), **c)
+        for fx, fy in zip(ax, ay):
             beta_x, beta_y = beta_x - fx, beta_y - fy
         return beta_x, beta_y
+
+    def hessian(self, x, y, lens_params: List[Dict]):
+        """Effective deflection Jacobian entries (f_xx, f_xy, f_yx, f_yy).
+
+        Single plane: the sum of the profiles' Hessians (symmetric).
+        Multi-plane: the composed Jacobian ``d alpha_eff / d theta`` by two
+        ``torch.autograd.grad`` calls on :meth:`beta` over coordinates
+        broadcast to the output's shape (so rows are exact per sample), with
+        ``create_graph=True``; generally asymmetric (f_xy != f_yx)."""
+        pm = self.phys_model
+        if getattr(pm, "mp_factors", None) is None:
+            f_xx = f_xy = f_yx = f_yy = 0.0
+            for lens, p, c in zip(pm.lenses, lens_params, self._lenses_constants):
+                a, b, c2, d = lens.hessian(x, y, **_batched(p), **c)
+                f_xx, f_xy, f_yx, f_yy = f_xx + a, f_xy + b, f_yx + c2, f_yy + d
+            return f_xx, f_xy, f_yx, f_yy
+
+        keep_graph = _needs_graph(x, y, *(v for p in lens_params for v in p.values()))
+        with torch.enable_grad():
+            bx0, _ = self.beta(x, y, lens_params)
+            xb, yb = (_grad_leaf(torch.broadcast_to(c, bx0.shape)) for c in (x, y))
+            bx, by = self.beta(xb, yb, lens_params)
+            ones, zeros = torch.ones_like(bx), torch.zeros_like(bx)
+            row_x = torch.autograd.grad((bx, by), (xb, yb), (ones, zeros), create_graph=True)
+            row_y = torch.autograd.grad((bx, by), (xb, yb), (zeros, ones), create_graph=True)
+        # beta = theta - alpha_eff  =>  J = I - d beta / d theta
+        out = (1.0 - row_x[0], -row_x[1], -row_y[0], 1.0 - row_y[1])
+        return out if keep_graph else tuple(g.detach() for g in out)
+
+    def potential(self, x, y, lens_params: List[Dict]):
+        """Total lensing potential (single plane; every profile must
+        implement ``potential``)."""
+        if getattr(self.phys_model, "mp_factors", None) is not None:
+            raise NotImplementedError("lensing potential / time delays are single-plane only")
+        psi = 0.0
+        for lens, p, c in zip(self.phys_model.lenses, lens_params, self._lenses_constants):
+            psi = psi + lens.potential(x, y, **_batched(p), **c)
+        return psi
+
+    def fermat_potential(self, x, y, lens_params: List[Dict], beta_x=None, beta_y=None):
+        """Fermat potential ``tau = |theta - beta|^2 / 2 - psi(theta)``
+        [arcsec^2]. With ``beta_*`` omitted each point uses its own
+        ray-traced source position; time-delay likelihoods pass a shared one."""
+        if beta_x is None or beta_y is None:
+            beta_x, beta_y = self.beta(x, y, lens_params)
+        psi = self.potential(x, y, lens_params)
+        return 0.5 * ((x - beta_x) ** 2 + (y - beta_y) ** 2) - psi
+
+    def magnification(self, x, y, lens_params: List[Dict]):
+        f_xx, f_xy, f_yx, f_yy = self.hessian(x, y, lens_params)
+        det_a = (1 - f_xx) * (1 - f_yy) - f_xy * f_yx
+        return 1.0 / det_a  # diverges on critical curves, as in the JAX package
+
+    def convergence(self, x, y, lens_params: List[Dict]):
+        f_xx, _, _, f_yy = self.hessian(x, y, lens_params)
+        return (f_xx + f_yy) / 2
+
+    def shear(self, x, y, lens_params: List[Dict]):
+        f_xx, f_xy, _, f_yy = self.hessian(x, y, lens_params)
+        return (f_xx - f_yy) / 2, f_xy
 
     @staticmethod
     def _get(params, key, profiles):
@@ -293,6 +384,41 @@ class LensSimulator(gmodel.VersionedAttrs):
         """Renders observed-frame images; returns (bs, H, W) squeezed."""
         flat = self._flat_light(params, no_deflection=no_deflection)
         return torch.squeeze(self._postprocess(self._place(flat)))
+
+    def _render_selected(self, params, lens_light: bool, source_light: bool,
+                         no_deflection: bool = False):
+        """Renders a subset of the light components through a shallow copy
+        whose model view lists only those (never by mutating ``self``); the
+        copy takes the unfused path, since the fused tiers render every
+        component."""
+        pm = self.phys_model
+        sub = gmodel.PhysicalModel.__new__(gmodel.PhysicalModel)
+        sub.lenses = pm.lenses
+        sub.mp_factors = getattr(pm, "mp_factors", None)
+        sub.lenses_constants = pm.lenses_constants
+        sub.lens_light = pm.lens_light if lens_light else []
+        sub.lens_light_constants = pm.lens_light_constants if lens_light else []
+        sub.source_light = pm.source_light if source_light else []
+        sub.source_light_constants = pm.source_light_constants if source_light else []
+        view = copy.copy(self)
+        view.phys_model = sub
+        view._use_fused = False
+        view._lens_light_constants = self._lens_light_constants if lens_light else []
+        view._source_light_constants = self._source_light_constants if source_light else []
+        flat = view._flat_light(params, no_deflection=no_deflection)
+        return torch.squeeze(self._postprocess(self._place(flat)))
+
+    def simulate_source(self, params):
+        """Unlensed source render (no deflection applied)."""
+        return self._render_selected(params, lens_light=False, source_light=True,
+                                     no_deflection=True)
+
+    def simulate_lens_light(self, params):
+        return self._render_selected(params, lens_light=True, source_light=False)
+
+    def simulate_images(self, params):
+        """Lensed source only (no lens light)."""
+        return self._render_selected(params, lens_light=False, source_light=True)
 
     def lstsq_simulate(self, params, observed_image, err_map, return_stacked=False,
                        return_coeffs=False, no_deflection=False):

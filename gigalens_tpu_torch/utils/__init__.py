@@ -2,6 +2,7 @@ from gigalens_tpu_torch.utils.diagnostics import (
     effective_sample_size,
     potential_scale_reduction,
 )
+from gigalens_tpu_torch.utils.images import find_images
 from gigalens_tpu_torch.utils.summary import format_summary, summarize_posterior
 
 __all__ = [
@@ -9,4 +10,5 @@ __all__ = [
     "potential_scale_reduction",
     "summarize_posterior",
     "format_summary",
+    "find_images",
 ]

@@ -33,18 +33,6 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 
-def device_rows(prof):
-    """(device us, calls, name) per kernel, device-side events only (a CPU
-    op's device time repeats its kernels'), largest first."""
-    from torch.autograd import DeviceType
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-    return sorted(((dev_us(e), e.count, e.key) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0), reverse=True)
-
-
 def map_steps(family, steps):
     """Returns (run, label): ``run()`` runs ``steps`` MAP steps and returns
     the number of steps."""
@@ -121,7 +109,7 @@ def main():
         args.trace.parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(args.trace))
 
-    rows = device_rows(prof)
+    rows = cs.device_rows(prof)
     busy = sum(r[0] for r in rows) / 1e6
     print(f"{label}: {steps} steps: wall {1e3 * plain_wall / steps:.3f} ms/step unprofiled, "
           f"{1e3 * wall / steps:.3f} ms/step profiled; device busy "

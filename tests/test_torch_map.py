@@ -174,9 +174,13 @@ def test_sequence_map_and_best_start(scene):
     z_nan[0] = float("nan")
     sim = seq._sim(BS)
     assert torch.isfinite(best_start(scene["tprob"], sim, z_nan)).all()
-    # Laplace, SVI and HMC are ported; only SMC still raises
-    with pytest.raises(NotImplementedError, match="M16"):
-        seq.SMC(best)
+    # SMC from a subsample of the best start (duplicates re-diversified by
+    # the moves): a short run on the exact simulator, particles finite
+    res = seq.SMC(best, num_particles=BS, num_leapfrog_steps=2, post_sampling_steps=1,
+                  max_stage=1, seed=0)
+    assert res.particles.shape == (BS, 1, 22) and torch.isfinite(res.particles).all()
+    assert res.num_stages == 1 and 0.0 < float(res.final_beta[0]) <= 1.0
+    assert res.post_samples.shape == (1, BS, 22)
 
 
 def test_phase_simulator_memo_and_exact_policy(scene):
@@ -210,11 +214,25 @@ def test_unported_inputs_raise(scene):
     sim = LensSimulator(lstsq, scene["tcfg"], bs=1, device="cpu")  # single-scene lstsq is ported
     with pytest.raises(NotImplementedError, match="M17"):
         sim.lstsq_simulate({}, np.zeros((2, 20, 20)), np.ones((2, 20, 20)))
-    with pytest.raises(NotImplementedError, match="M14"):
+    # multi-plane models and position data are ported (M14): what the JAX
+    # package refuses, the port refuses with the same errors
+    with pytest.raises(ValueError, match="z_source"):
         PhysicalModel([EPL(18)], [], [SersicEllipse()], lens_redshifts=[0.5])
-    with pytest.raises(NotImplementedError, match="M14"):
-        ForwardProbModel(scene["tprob"].prior, np.zeros((20, 20)), centroids_x=[[0.0]],
-                         device="cpu")
+    with pytest.raises(ValueError, match="one redshift per deflector"):
+        PhysicalModel([EPL(18)], [], [SersicEllipse()], lens_redshifts=[0.3, 0.5],
+                      z_source=2.0)
+    assert PhysicalModel([EPL(18)], [], [SersicEllipse()], lens_redshifts=[0.5],
+                         z_source=2.0).mp_factors.shape == (1, 1)
+    with pytest.raises(ValueError, match="exactly one centroids group"):
+        ForwardProbModel(scene["tprob"].prior, np.zeros((20, 20)),
+                         centroids_x=[[0.0], [0.1]], centroids_y=[[0.0], [0.1]],
+                         centroids_errors_x=[[0.1], [0.1]], centroids_errors_y=[[0.1], [0.1]],
+                         image_fluxes=[1.0], image_flux_errors=[0.1], device="cpu")
+    prob = ForwardProbModel(scene["tprob"].prior, np.zeros((20, 20)), centroids_x=[[0.0]],
+                            centroids_y=[[0.0]], centroids_errors_x=[[0.1]],
+                            centroids_errors_y=[[0.1]], background_rms=0.2, exp_time=100.0,
+                            device="cpu")
+    assert prob.include_pixels and prob.include_positions and prob.n_position == 2
     with pytest.raises(NotImplementedError, match="direct"):
         LensSimulator(scene["tphys"], dataclasses.replace(scene["tcfg"], use_fft=False), bs=1,
                       device="cpu")

@@ -74,6 +74,25 @@ def test_bench_json_line_and_exit_code(capsys):
     assert np.isfinite(r["max_rhat"]) and r["device"] == "cpu"
 
 
+def test_bench_smc_block(capsys):
+    """--smc adds an smc block (the tiny SMC recipe on the micro scene)
+    and leaves every other key and the value's meaning as they were."""
+    assert bench.main(dict(MICRO, scale="tiny"), device="cpu", smc=True) == 0
+    r = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(r) == KEYS | {"smc"}, set(r) ^ KEYS
+    assert r["value"] == pytest.approx(sum(r["phase_s"].values()), abs=0.02)
+    smc = r["smc"]
+    tiny = bench.SMC_CONFIGS["tiny"]
+    assert {k: smc[k] for k in tiny} == tiny
+    assert 1 <= smc["stages"] <= tiny["max_stage"]
+    assert smc["leapfrogs"] == (smc["moves"] + tiny["post_steps"]) * tiny["leapfrog_steps"]
+    assert smc["moves"] >= smc["stages"]
+    assert 0 < smc["tempering_s"] <= smc["wall_s"] and smc["post_s"] >= 0
+    assert len(smc["log_evidence"]) == len(smc["final_beta"]) == 1
+    assert np.isfinite(smc["log_evidence"][0]) and 0 < smc["final_beta"][0] <= 1
+    assert np.isfinite(smc["posterior_red_chi2"])
+
+
 def test_bench_failed_phase_is_incomplete_and_nonzero(capsys, monkeypatch):
     def boom(self):
         raise RuntimeError("injected")

@@ -107,10 +107,11 @@ def test_multi_plane_model_takes_the_unfused_tier(family):
     assert sim._use_fused
     assert (sim._fused_niter is not None) == (family == "bench_pattern")
     assert (sim._fused_spec is not None) == (family == "builder")
-    phys.mp_factors = np.ones((2, 2), np.float32)
-    assert LensSimulator._detect_fused_pattern(phys) is None
-    assert build_spec(phys) is None
-    sim = LensSimulator(phys, cfg, bs=2, device="cpu")
+    multi = PhysicalModel([EPL(18), Shear()], [SersicEllipse()], [source],
+                          lens_redshifts=[0.5, 0.5], z_source=2.0)
+    assert multi.mp_factors is not None
+    assert LensSimulator._detect_fused_pattern(multi) is None
+    assert build_spec(multi) is None
+    sim = LensSimulator(multi, cfg, bs=2, device="cpu")
     assert not sim._use_fused and sim._fused_niter is None and sim._fused_spec is None
-    phys.mp_factors = None
     assert LensSimulator(phys, cfg, bs=2, device="cpu")._use_fused
