@@ -68,13 +68,27 @@
    (host ms a leapfrog, device idle share).
 8. Runs the multiple-image positions workflow (examples/demo_cluster.py
    --smc) at a smaller depth: find_images on the scene's truth (>= 2
-   images), a pixels + positions ForwardProbModel, 150 MAP steps from 200
+   images), a pixels + positions ForwardProbModel, 100 MAP steps from 200
    starts, SMC annealing both terms from the MAP subsample (200 particles,
    10 post steps), gated on beta = 1 and both red-chi2 terms <= CHI2_GATE.
 9. Checks K2/K3 at the SVI (1000 surrogate draws), HMC (the 50 chains' last
    states) and SMC (the 1000 final particles) shapes, and the direct K4 at
    the SVI shape, against their float64 twins.
-10. Ends with the card line, a JSON line of per-kernel results and the ok
+10. Runs the cluster scene of config #5, dpie arm
+   (scripts/bench_cluster_posterior.py:86-190: NFW_ELLIPSE halo, 20
+   luminosity-scaled DPIESubhaloSeries members of order 3 in chunks of 16,
+   Shapelets(4) source with sampled amplitudes, 48 px at 0.2", supersample
+   2, a 9x9 Gaussian PSF, bkg 0.1, exp_time 500): the series precompute on
+   the card, held against the direct member sum; find_images on the truth
+   (>= 2 images); MAP 128 x 400 on pixels + positions (K5/K7 and the direct
+   K4 counted exactly); SMC as examples/demo_cluster.py runs it (1000
+   particles from the MAP starts, 10 leapfrogs, target pixels+positions,
+   10 post steps, cut from 100), gated on beta = 1 inside 200 stages, a
+   finite logZ and the pixel red-chi2 in [0.85, 1.15], K5/K7 and no K4,
+   with one stage profiled; a 50-step lstsq MAP (K6/K7); K5, K6, K7 and the
+   direct K4 at the phase's shapes and grids against their twins; and
+   scripts/bench_cluster.py's hot loop (direct sum against the series).
+11. Ends with the card line, a JSON line of per-kernel results and the ok
    line.
 
 Every phase raises on failure (nothing is caught), so any failure exits
@@ -302,6 +316,17 @@ def check_rel(name, got, want, rel, dim=None):
     if not math.isfinite(r) or r > rel:
         raise AssertionError(f"{name}: relative error {r:.3e} exceeds {rel}")
     return r, float(err.max())
+
+
+def check_launches(label, counts, need=(), banned=(), exact=None):
+    """Raises unless every kernel in ``need`` launched, none in ``banned``
+    did, and each of ``exact`` launched exactly its count."""
+    missing = [k for k in need if counts[k] <= 0]
+    extra = [k for k in banned if counts[k] != 0]
+    wrong = {k: (counts[k], n) for k, n in (exact or {}).items() if counts[k] != n}
+    if missing or extra or wrong:
+        raise AssertionError(f"{label}: kernels never launched {missing}, launched but off "
+                             f"this path {extra}, counts (got, expected) {wrong}")
 
 
 def chunked(fn, n, step, *tensors):
@@ -716,12 +741,105 @@ def by_samples(fn, bs, step, summed, p, ct=None):
     return torch.cat(outs, dim=0 if summed or ct is not None else 1)
 
 
+def builder_rows(spec, params, x, y, summed, gen, phase, where="", extras=(), fwd_rel=None):
+    """K5 (``summed``) or K6, and K7, on ``params`` (bs, n_cols): the
+    forward against its float32 and float64 twins (BUILDER_FWD_RTOL /
+    BUILDER_FWD_ATOL, or with ``fwd_rel`` that fraction of each sample's
+    max |value|), K7 against float64 autograd of the one-stage twin and
+    its float32 two-stage twin and bitwise over two calls, each timed
+    against its twin, with its bound. Returns the two ``kernels`` rows of
+    ``phase``."""
+    import torch
+
+    from gigalens_tpu_torch.ops.cuda import fused_builder as fb
+
+    bs = params.shape[0]
+    ex64 = tuple(e.double() for e in extras)
+    at = f" at {where}" if where else ""
+    kernels = []
+    # forward: K5 (summed) or K6 (components)
+    out_k = fb.fused_builder_fwd(spec, params, x, y, extras, summed)
+    torch.cuda.synchronize()
+    out64 = by_samples(lambda p: twin(spec, p.double(), x.double(), y.double(), summed, ex64),
+                       bs, 50, summed, params)
+    out32 = by_samples(lambda p: fb.tile_forward_twostage(spec, p, x, y, extras, summed), bs, 100,
+                       summed, params)
+    k = "K5" if summed else "K6"
+
+    def per_sample(a, b):
+        """max over samples of max |a - b| / max |b| (b the reference)."""
+        err = (a.double() - b.double()).abs().reshape(-1, x.shape[0]).amax(1)
+        return float((err / b.double().abs().reshape(-1, x.shape[0]).amax(1)).max())
+
+    print(f"{k}{at}: max |err| vs the f64 twin: kernel "
+          f"{float((out_k.double() - out64).abs().max()):.3e} ({per_sample(out_k, out64):.2e} "
+          f"of a sample's max), f32 twin {float((out32.double() - out64).abs().max()):.3e} "
+          f"({per_sample(out32, out64):.2e}); kernel vs f32 twin "
+          f"{float((out_k - out32).abs().max()):.3e}", flush=True)
+    if fwd_rel is None:
+        check_close(f"{k}{at} vs f32 twin", out_k, out32, BUILDER_FWD_RTOL, BUILDER_FWD_ATOL)
+        e_f = check_close(f"{k}{at} vs f64 twin", out_k, out64, BUILDER_FWD_RTOL,
+                          BUILDER_FWD_ATOL)
+    else:
+        rows = (-1, x.shape[0])
+        check_rel(f"{k}{at} vs f32 twin", out_k.reshape(rows), out32.reshape(rows), fwd_rel,
+                  dim=1)
+        e_f = check_rel(f"{k}{at} vs f64 twin", out_k.reshape(rows), out64.reshape(rows),
+                        fwd_rel, dim=1)[1]
+    del out64, out32
+    ms = cuda_ms(lambda: fb.fused_builder_fwd(spec, params, x, y, extras, summed))
+    pms = cuda_ms(lambda: fb.tile_forward_twostage(spec, params, x, y, extras, summed), reps=3,
+                  warmup=1)
+    # the bound's operations: the one-stage form's
+    b_ms, b_by = bound(count_ops(lambda: twin(spec, params, x, y, summed, extras)),
+                       [params, x, y, *extras, out_k])
+    name = ("fused_builder_fwd summed (K5)" if summed
+            else "fused_builder_fwd components (K6)") + at
+    kernels.append(dict(name=name, phase=phase,
+                        key="fused_builder_fwd_sum" if summed else "fused_builder_fwd_components",
+                        route="cuda", source="gigalens_tpu_torch/csrc/fused_builder.cu",
+                        replaces="gigalens_tpu/ops/pallas/fused_builder.py:612",
+                        max_abs_err=e_f, ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                        library_ms=None))
+    print(f"{name}: max|err| vs f64 {e_f:.3e}  kernel {ms:.3f} ms  twin {pms:.3f} ms  "
+          f"bound {b_ms:.3f} ms ({b_by})", flush=True)
+
+    # backward: K7 against f64 autograd and the f32 hand-VJP twin
+    ct = torch.randn(out_k.shape, generator=gen, device=out_k.device)
+    g_k = fb.fused_builder_bwd(spec, params, x, y, extras, ct, summed)
+    torch.cuda.synchronize()
+    g64 = by_samples(lambda p, c: autograd64(spec, p, x, y, c, summed, extras), bs, 25, summed,
+                     params, ct)
+    rel, e_b = check_rel(f"K7{at} ({phase}) vs f64 autograd of the twin", g_k, g64,
+                         BUILDER_GRAD_REL, dim=0)
+    g32 = by_samples(lambda p, c: fb.tile_backward_reference(spec, p, x, y, extras, c, summed),
+                     bs, 50, summed, params, ct)
+    rel32, _ = check_rel(f"K7{at} ({phase}) vs f32 hand-VJP twin", g_k, g32, BUILDER_GRAD_REL,
+                         dim=0)
+    if not torch.equal(g_k, fb.fused_builder_bwd(spec, params, x, y, extras, ct, summed)):
+        raise AssertionError(f"K7{at} ({phase}) is not deterministic from run to run")
+    ms = cuda_ms(lambda: fb.fused_builder_bwd(spec, params, x, y, extras, ct, summed))
+    pms = cuda_ms(lambda: fb.tile_backward_reference(spec, params, x, y, extras, ct, summed),
+                  reps=3, warmup=1)
+    ops = count_ops(lambda: fb.tile_backward_onestage(spec, params, x, y, extras, ct, summed))
+    b_ms, b_by = bound(ops, [params, x, y, *extras, ct, g_k])
+    name = "fused_builder_bwd" + (" (K7)" if summed else " components (K7)") + at
+    kernels.append(dict(name=name, phase=phase, key="fused_builder_bwd", route="cuda",
+                        source="gigalens_tpu_torch/csrc/fused_builder.cu",
+                        replaces="gigalens_tpu/ops/pallas/fused_builder.py:654",
+                        max_abs_err=e_b, ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                        library_ms=None))
+    print(f"{name}: col-rel err vs f64 autograd {rel:.3e} (vs f32 two-stage twin "
+          f"{rel32:.3e}), bitwise repeatable  kernel {ms:.3f} ms  twin {pms:.3f} ms  "
+          f"bound {b_ms:.3f} ms ({b_by})", flush=True)
+    return kernels
+
+
 def builder_checks():
     """K5 and K7 at family S's full width, K6 and K7-components at family
     L's; then every stage once (coverage) and ragged shapes."""
     import torch
 
-    from gigalens_tpu_torch.ops.cuda import fused_builder as fb
     from gigalens_tpu_torch.simulator import LensSimulator
 
     dev = torch.device("cuda")
@@ -736,66 +854,9 @@ def builder_checks():
         summed = kind == "S"
         params = spec.pack(family_prior(kind).sample(gen, BS)).contiguous()
         x, y = sim.img_x, sim.img_y
-        npix = x.shape[0]
-        print(f"family {kind}: {spec.label}, bs={BS} npix={npix} n_cols={spec.n_cols} "
+        print(f"family {kind}: {spec.label}, bs={BS} npix={x.shape[0]} n_cols={spec.n_cols} "
               f"depth={spec.depth}", flush=True)
-        # forward: K5 (summed) or K6 (components)
-        out_k = fb.fused_builder_fwd(spec, params, x, y, (), summed)
-        torch.cuda.synchronize()
-        out64 = by_samples(lambda p: twin(spec, p.double(), x.double(), y.double(), summed),
-                           BS, 50, summed, params)
-        out32 = by_samples(lambda p: fb.tile_forward_twostage(spec, p, x, y, (), summed), BS, 100,
-                           summed, params)
-        check_close(f"K{5 if summed else 6} vs f32 twin", out_k, out32, BUILDER_FWD_RTOL,
-                    BUILDER_FWD_ATOL)
-        e_f = check_close(f"K{5 if summed else 6} vs f64 twin", out_k, out64,
-                          BUILDER_FWD_RTOL, BUILDER_FWD_ATOL)
-        del out64, out32
-        ms = cuda_ms(lambda: fb.fused_builder_fwd(spec, params, x, y, (), summed))
-        pms = cuda_ms(lambda: fb.tile_forward_twostage(spec, params, x, y, (), summed), reps=3,
-                      warmup=1)
-        # the bound's operations: the one-stage form's
-        b_ms, b_by = bound(count_ops(lambda: twin(spec, params, x, y, summed)),
-                           [params, x, y, out_k])
-        name = "fused_builder_fwd summed (K5)" if summed else "fused_builder_fwd components (K6)"
-        kernels.append(dict(name=name, phase=kind,
-                            key="fused_builder_fwd_sum" if summed else "fused_builder_fwd_components",
-                            route="cuda", source="gigalens_tpu_torch/csrc/fused_builder.cu",
-                            replaces="gigalens_tpu/ops/pallas/fused_builder.py:612",
-                            max_abs_err=e_f, ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
-                            library_ms=None))
-        print(f"{name}: max|err| vs f64 {e_f:.3e}  kernel {ms:.3f} ms  twin {pms:.3f} ms  "
-              f"bound {b_ms:.3f} ms ({b_by})", flush=True)
-
-        # backward: K7 against f64 autograd and the f32 hand-VJP twin
-        ct = torch.randn(out_k.shape, generator=gen, device=dev)
-        g_k = fb.fused_builder_bwd(spec, params, x, y, (), ct, summed)
-        torch.cuda.synchronize()
-        g64 = by_samples(lambda p, c: autograd64(spec, p, x, y, c, summed), BS, 25, summed,
-                         params, ct)
-        rel, e_b = check_rel(f"K7 ({kind}) vs f64 autograd of the twin", g_k, g64,
-                             BUILDER_GRAD_REL, dim=0)
-        g32 = by_samples(lambda p, c: fb.tile_backward_reference(spec, p, x, y, (), c, summed),
-                         BS, 50, summed, params, ct)
-        rel32, _ = check_rel(f"K7 ({kind}) vs f32 hand-VJP twin", g_k, g32, BUILDER_GRAD_REL,
-                             dim=0)
-        if not torch.equal(g_k, fb.fused_builder_bwd(spec, params, x, y, (), ct, summed)):
-            raise AssertionError(f"K7 ({kind}) is not deterministic from run to run")
-        ms = cuda_ms(lambda: fb.fused_builder_bwd(spec, params, x, y, (), ct, summed))
-        pms = cuda_ms(lambda: fb.tile_backward_reference(spec, params, x, y, (), ct, summed),
-                      reps=3, warmup=1)
-        ops = count_ops(lambda: fb.tile_backward_onestage(spec, params, x, y, (), ct, summed))
-        b_ms, b_by = bound(ops, [params, x, y, ct, g_k])
-        name = "fused_builder_bwd" + (" (K7)" if summed else " components (K7)")
-        kernels.append(dict(name=name, phase=kind, key="fused_builder_bwd", route="cuda",
-                            source="gigalens_tpu_torch/csrc/fused_builder.cu",
-                            replaces="gigalens_tpu/ops/pallas/fused_builder.py:654",
-                            max_abs_err=e_b, ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
-                            library_ms=None))
-        print(f"{name}: col-rel err vs f64 autograd {rel:.3e} (vs f32 two-stage twin "
-              f"{rel32:.3e}), bitwise repeatable  kernel {ms:.3f} ms  twin {pms:.3f} ms  "
-              f"bound {b_ms:.3f} ms ({b_by})", flush=True)
-        del g64, g32, ct, out_k
+        kernels += builder_rows(spec, params, x, y, summed, gen, kind)
         builder_ragged(spec, params, x, y, summed, gen)
     builder_coverage(dev, gen)
     return kernels
@@ -875,8 +936,8 @@ def builder_coverage(dev, gen):
         spec = fb.build_spec(phys)
         params = tree_to_torch(coverage_params(phys, COVER_BS, rng), device=dev)
         cases.append((name, spec, spec.pack(params).contiguous(), ()))
-    # Taylor-series stage (its profile, MassSeries, is not ported yet): a
-    # spec from stage records and seeded coefficient grids, order 3
+    # the Taylor-series stage on seeded coefficient grids, order 3 (the
+    # cluster phase runs it on a real profile's grids)
     spec = fb.FusedSpec(
         [fb.Stage(fb.SERIES, 0, order=3, extra=0), fb.Stage(fb.SHEAR, 2),
          fb.Stage(fb.SERSIC_E, 4, is_source=True)],
@@ -951,9 +1012,7 @@ def map_phase(label, phys, prob, prior, cfg, steps, check_sim, need):
         raise AssertionError(f"MAP {label}: best_map_start output not finite / wrong shape")
     if not (math.isfinite(chi_n) and chi_n < chi0):
         raise AssertionError(f"MAP {label}: min reduced chi2 did not decrease: {chi0} -> {chi_n}")
-    missing = [k for k in need if counts[k] <= 0]
-    if missing:
-        raise AssertionError(f"kernels never launched in the {label} MAP phase: {missing}")
+    check_launches(f"MAP {label}", counts, need)
     return counts
 
 
@@ -1159,18 +1218,13 @@ def pipeline_phase():
                              f"or min ESS {r['min_ess']} not finite")
     for phase, need, banned in (("map", MAP_SVI_NEED, ()), ("svi", MAP_SVI_NEED, ()),
                                 ("hmc", HMC_NEED, HMC_BANNED)):
-        counts = rec[phase]["counts"]
-        missing = [k for k in need if counts[k] <= 0]
-        extra = [k for k in banned if counts[k] != 0]
-        if missing or extra:
-            raise AssertionError(f"pipeline {phase}: kernels never launched {missing}, "
-                                 f"launched but off this path {extra}")
+        check_launches(f"pipeline {phase}", rec[phase]["counts"], need, banned)
     return pipe, rec
 
 
 # the positions phase (examples/demo_cluster.py --smc at a smaller depth):
 # MAP starts x steps, SMC particles and post steps, image-position errors
-POS_MAP_N, POS_MAP_STEPS, POS_PARTICLES, POS_POST, POS_ERR = 200, 150, 200, 10, 0.1
+POS_MAP_N, POS_MAP_STEPS, POS_PARTICLES, POS_POST, POS_ERR = 200, 100, 200, 10, 0.1
 PROFILE_SEED = 3
 
 
@@ -1201,7 +1255,6 @@ def smc_phase(pipe, rec):
     the final cloud twice, plain and under torch.profiler, for the host ms a
     leapfrog and the device's idle share. Returns the SMC result."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from gigalens_tpu_torch import bench
     from gigalens_tpu_torch.inference.smc import fit_smc
@@ -1235,11 +1288,7 @@ def smc_phase(pipe, rec):
                              f"{tuple(res.post_samples.shape)}")
     if not block["posterior_red_chi2"] <= CHI2_GATE:
         raise AssertionError(f"SMC posterior red-chi2 {block['posterior_red_chi2']} > {CHI2_GATE}")
-    missing = [k for k in HMC_NEED if counts[k] <= 0]
-    extra = [k for k in HMC_BANNED if counts[k] != 0]
-    if missing or extra:
-        raise AssertionError(f"SMC: kernels never launched {missing}, launched but off this "
-                             f"path {extra}")
+    check_launches("SMC", counts, HMC_NEED, HMC_BANNED)
 
     # one stage of moves from the final cloud (8 moves of 3 leapfrogs and
     # the first evaluation), plain then profiled
@@ -1251,6 +1300,28 @@ def smc_phase(pipe, rec):
                       post_sampling_steps=0, ess_threshold_ratio=c["ess_threshold_ratio"],
                       max_stage=1, seed=PROFILE_SEED)
         return out.num_moves * c["leapfrog_steps"] + 1
+
+    rows, evals_p = profile_stage("SMC", stage)
+    groups = {"K2+K3": [0.0, 0], "cuFFT": [0.0, 0], "the rest": [0.0, 0]}
+    for us, count, key in rows:
+        g = groups["K2+K3" if "fused_render" in key
+                   else "cuFFT" if "fft" in key.lower() else "the rest"]
+        g[0], g[1] = g[0] + us, g[1] + count
+    print("SMC device time a leapfrog by group: " + ", ".join(
+        f"{name} {us / 1e3 / evals_p:.3f} ms ({count / evals_p:.0f} launches)"
+        for name, (us, count) in groups.items()), flush=True)
+    return res
+
+
+def profile_stage(label, stage):
+    """Runs ``stage`` (one SMC stage from a final cloud; returns its
+    evaluations with gradients) plain, then under torch.profiler, and
+    prints host ms a leapfrog, device busy ms a leapfrog, the idle share of
+    the unprofiled wall (each per evaluation), launches a leapfrog and the
+    largest kernels. Returns (device rows, evaluations of the profiled
+    run)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1264,25 +1335,17 @@ def smc_phase(pipe, rec):
         wall = time.perf_counter() - t0
     rows = device_rows(prof)
     busy = sum(r[0] for r in rows) / 1e6
-    print(f"SMC profile (one stage from the final cloud, {evals} evaluations with "
+    print(f"{label} profile (one stage from the final cloud, {evals} evaluations with "
           f"gradients): {1e3 * plain / evals:.3f} ms/leapfrog unprofiled, "
           f"{1e3 * wall / evals_p:.3f} profiled; device busy {1e3 * busy / evals_p:.3f} "
-          f"ms/leapfrog = idle {100 * (1 - busy / plain):.1f}% of the unprofiled wall; "
-          f"{sum(r[1] for r in rows) / evals_p:.0f} launches a leapfrog; by kernel "
-          f"(ms/leapfrog, launches/leapfrog, name):", flush=True)
+          f"ms/leapfrog = idle {100 * (1 - busy * evals / (plain * evals_p)):.1f}% of the "
+          f"unprofiled wall; {sum(r[1] for r in rows) / evals_p:.0f} launches a leapfrog; by "
+          f"kernel (ms/leapfrog, launches/leapfrog, name):", flush=True)
     for us, count, key in rows[:8]:
         print(f"  {us / 1e3 / evals_p:8.3f}  {count / evals_p:6.1f}  {key[:100]}", flush=True)
-    groups = {"K2+K3": [0.0, 0], "cuFFT": [0.0, 0], "the rest": [0.0, 0]}
-    for us, count, key in rows:
-        g = groups["K2+K3" if "fused_render" in key
-                   else "cuFFT" if "fft" in key.lower() else "the rest"]
-        g[0], g[1] = g[0] + us, g[1] + count
-    print("SMC device time a leapfrog by group: " + ", ".join(
-        f"{name} {us / 1e3 / evals_p:.3f} ms ({count / evals_p:.0f} launches)"
-        for name, (us, count) in groups.items()), flush=True)
     if busy <= 0:
-        raise AssertionError("torch.profiler saw no device time in the SMC moves")
-    return res
+        raise AssertionError(f"torch.profiler saw no device time in the {label} moves")
+    return rows, evals_p
 
 
 def positions_phase(pipe):
@@ -1362,6 +1425,380 @@ def positions_phase(pipe):
                              f"{chi_pos} (gate {CHI2_GATE})")
     if not torch.isfinite(res.post_samples).all():
         raise AssertionError("positions SMC post samples not finite")
+
+
+# the cluster phase: the dpie arm of config #5 as
+# scripts/bench_cluster_posterior.py:86-190 builds it, MAP then SMC as
+# examples/demo_cluster.py:183-190 runs it (post steps cut from 100 to 10)
+CL_G, CL_PIX, CL_DELTA, CL_NMAX, CL_ORDER, CL_CHUNK = 20, 48, 0.2, 4, 3, 16
+CL_CONSTS = dict(r_cut=1.5, r_core=0.08)  # the series' expansion point: the prior mean
+CL_BKG, CL_EXP_TIME, CL_POS_ERR = 0.1, 500.0, 0.1
+CL_MAP_N, CL_MAP_STEPS, CL_LSTSQ_STEPS = 128, 400, 50
+CL_PARTICLES, CL_LEAPFROG, CL_POST, CL_MAX_STAGE = 1000, 10, 10, 200
+CL_CHI2 = (0.85, 1.15)  # the config #5 gate (BASELINE.md:526)
+CL_SERIES_BS = 1000
+# K5 at the cluster MAP's and SMC's states, of each sample's max |value|:
+# the halo deflects by several arcsec into a compact shapelet source (the
+# MAP ends at beta down to 0.2"), so the float32 rounding of the ray-shot
+# position reaches 5.3e-4 of a sample's max in the float32 twin itself
+# (measured on the cluster MAP's final states, where the kernel and the
+# float32 twin are both 5.8e-3 absolute off float64)
+CLUSTER_FWD_REL = 2e-3
+# the series at dv = 0 against the direct member sum, of its max; at r_cut
+# draws from the prior, JAX's own tolerance (tests/test_cluster.py:123-150)
+SERIES_REL, SERIES_RTOL, SERIES_ATOL = 1e-4, 5e-3, 2e-3
+# scripts/bench_cluster.py's defaults: the direct member sum against the series
+HOT_G, HOT_SIDE, HOT_BS, HOT_CHUNK, HOT_REPEATS = 200, 160, 64, 32, 10
+CL_MAP_NEED = ("fused_builder_fwd_sum", "fused_builder_bwd", "direct_conv_fwd",
+               "direct_conv_transpose")
+BUILDER_ROUTE_BANNED = ("fused_render_fwd", "fused_render_fwd_omega", "fused_render_bwd")
+
+
+def cluster_catalogue(n=CL_G, spread=6.0, e_max=0.2):
+    """The member catalogue of scripts/bench_cluster_posterior.py (seed 0)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return dict(lum=rng.uniform(0.3, 3.0, n).astype(np.float32),
+                center_x=rng.normal(0, spread, n).astype(np.float32),
+                center_y=rng.normal(0, spread, n).astype(np.float32),
+                e1=rng.uniform(-e_max, e_max, n).astype(np.float32),
+                e2=rng.uniform(-e_max, e_max, n).astype(np.float32))
+
+
+def cluster_scene(lstsq=False, members=None):
+    """(phys, prior, cfg, members): NFW_ELLIPSE + DPIESubhaloSeries(order 3,
+    chunks of 16) + Shapelets(4), 48 px at 0.2", supersample 2, the 9x9
+    Gaussian PSF (sigma sqrt(2) native px)."""
+    import numpy as np
+
+    from gigalens_tpu_torch import PhysicalModel, SimulatorConfig
+    from gigalens_tpu_torch.prob import Prior
+    from gigalens_tpu_torch.prob import distributions as d
+    from gigalens_tpu_torch.profiles.light import Shapelets
+    from gigalens_tpu_torch.profiles.mass import NFW_ELLIPSE, DPIESubhaloSeries
+
+    if members is None:
+        members = DPIESubhaloSeries(lum_star=1.0, galaxy_catalogue=cluster_catalogue(),
+                                    order=CL_ORDER, chunk_size=CL_CHUNK)
+    shapelets = Shapelets(CL_NMAX, use_lstsq=lstsq)
+    phys = PhysicalModel([NFW_ELLIPSE(), members], [], [shapelets])
+    src = dict(beta=d.LogNormal(math.log(0.4), 0.2), center_x=d.Normal(0, 0.3),
+               center_y=d.Normal(0, 0.3))
+    if not lstsq:
+        src.update({a: d.Normal(0, 5.0) for a in shapelets._amp_names})
+    prior = Prior(dict(
+        lens_mass=[dict(Rs=d.LogNormal(math.log(10.0), 0.2),
+                        alpha_Rs=d.LogNormal(math.log(4.0), 0.3), e1=d.Normal(0, 0.1),
+                        e2=d.Normal(0, 0.1), center_x=d.Normal(0, 0.5),
+                        center_y=d.Normal(0, 0.5)),
+                   dict(theta_E=d.LogNormal(math.log(0.3), 0.3),
+                        r_cut=d.LogNormal(math.log(1.5), 0.2))],
+        source_light=[src]))
+    g = np.exp(-((np.arange(9) - 4) ** 2 + (np.arange(9)[:, None] - 4) ** 2) / 4.0)
+    cfg = SimulatorConfig(delta_pix=CL_DELTA, num_pix=CL_PIX, supersample=2,
+                          kernel=(g / g.sum()).astype(np.float32))
+    return phys, prior, cfg, members
+
+
+def series_checks(members, prior, sim, dev):
+    """The series deflection on the phase's grid against the direct
+    ScalingRelation(DPIE) sum, theta_E from its prior at CL_SERIES_BS
+    samples: at dv = 0 (SERIES_REL of the max), and with r_cut uniform in
+    log over the prior's central band, +-0.5 sigma (SERIES_RTOL /
+    SERIES_ATOL, JAX's own tolerance for the order-3 series). The
+    truncation error further out (at +-1 and +-2 sigma, theta_E at its
+    median) is printed, not gated: it is the reference's series as well."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    te = prior.sample(gen, CL_SERIES_BS)["lens_mass"][1]["theta_E"][:, None]
+    u = torch.rand((CL_SERIES_BS, 1), generator=gen, device=dev) - 0.5
+    x, y = sim.img_x, sim.img_y
+    r0, r_core = CL_CONSTS["r_cut"], torch.tensor(CL_CONSTS["r_core"], device=dev)
+
+    def both(theta_E, r_cut):
+        with torch.no_grad():
+            return (members.deriv(x, y, theta_E=theta_E, r_cut=r_cut),
+                    members._rel.deriv(x, y, theta_E=theta_E, r_core=r_core, r_cut=r_cut))
+
+    got, want = both(te, torch.full_like(te, r0))
+    e0 = max(check_rel("series at dv = 0 vs the direct member sum", g, w, SERIES_REL)[0]
+             for g, w in zip(got, want))
+    got, want = both(te, r0 * torch.exp(0.2 * u))
+    e1 = max(check_close("series in the +-0.5 sigma band vs the direct member sum", g, w,
+                         SERIES_RTOL, SERIES_ATOL) for g, w in zip(got, want))
+    sig = torch.tensor([-2.0, -1.0, 1.0, 2.0], device=dev)[:, None]
+    got, want = both(torch.full_like(sig, 0.3), r0 * torch.exp(0.2 * sig))
+    tails = torch.stack([(g - w).abs().amax(1) for g, w in zip(got, want)]).amax(0).tolist()
+    print(f"cluster series ({CL_G} members, order {CL_ORDER}, {x.shape[0]} px, bs "
+          f"{CL_SERIES_BS}) against the direct dPIE sum: rel err at dv = 0 {e0:.3e} (of the "
+          f"max), max |err| in the +-0.5 sigma r_cut band {e1:.3e}; truncation at theta_E 0.3, "
+          f"r_cut at -2 / -1 / +1 / +2 sigma: " + " / ".join(f"{t:.2e}" for t in tails),
+          flush=True)
+
+
+def cluster_phase():
+    """The cluster scene of config #5 (dpie arm) through MAP -> SMC on the
+    builder's series stage, then the lstsq MAP, the kernels at the phase's
+    shapes and the cluster hot loop. Returns (kernels rows, launch counts by
+    phase)."""
+    import numpy as np
+    import torch
+
+    from gigalens_tpu_torch.inference import ModellingSequence
+    from gigalens_tpu_torch.inference.sequence import map_optimizer
+    from gigalens_tpu_torch.inference.smc import fit_smc
+    from gigalens_tpu_torch.model import BackwardProbModel, ForwardProbModel
+    from gigalens_tpu_torch.ops.cuda import fused_builder as fb
+    from gigalens_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from gigalens_tpu_torch.simulator import LensSimulator
+    from gigalens_tpu_torch.utils import find_images
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+
+    def clock():
+        return f"[{time.perf_counter() - t_phase:.1f} s into the phase]"
+
+    phys, prior, cfg, members = cluster_scene()
+
+    # 1. the series precompute at the prior-mean point, on the card
+    probe = LensSimulator(phys, cfg, bs=1, device=dev)
+    members.set_constants(CL_CONSTS)
+    members.set_grid(probe.img_x, probe.img_y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    members.set_deriv()
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    print(f"cluster: series precompute (set_deriv, {CL_G} members, order {CL_ORDER}, "
+          f"{probe.img_x.shape[0]} px) {t_pre:.3f} s, coefficients "
+          f"{tuple(members._deriv_coefs.shape)}", flush=True)
+    series_checks(members, prior, probe, dev)
+    print(f"cluster: series checked {clock()}", flush=True)
+
+    # 2. truth, observation and the images of the true source
+    truth = prior.sample(torch.Generator(device=dev).manual_seed(5), 1)
+    with torch.no_grad():
+        clean = probe.simulate(truth).cpu().numpy()
+    noise = np.random.default_rng(3).normal(size=clean.shape).astype(np.float32)
+    obs = clean + noise * np.sqrt(CL_BKG**2 + np.clip(clean, 0, None) / CL_EXP_TIME)
+    src = truth["source_light"][0]
+    img_x, img_y, mags = find_images(probe, truth["lens_mass"], float(src["center_x"][0]),
+                                     float(src["center_y"][0]), search_window=4.0)
+    print(f"cluster: find_images: {len(img_x)} images "
+          + ", ".join(f"({a:+.3f}, {b:+.3f}; mu {m:+.2f})" for a, b, m in zip(img_x, img_y, mags))
+          + f" {clock()}", flush=True)
+    if len(img_x) < 2:
+        raise AssertionError(f"find_images found {len(img_x)} image(s) of the cluster truth")
+    err = np.full(len(img_x), CL_POS_ERR, np.float32)
+    prob = ForwardProbModel(prior, obs, background_rms=CL_BKG, exp_time=CL_EXP_TIME,
+                            centroids_x=[img_x], centroids_y=[img_y], centroids_errors_x=[err],
+                            centroids_errors_y=[err], device=dev)
+    seq = ModellingSequence(phys, prob, cfg, device=dev)
+    counts = {}
+
+    # 3. MAP on pixels + positions: K5/K7 and the direct K4, counted exactly
+    sim_map = seq._sim(CL_MAP_N)
+    spec = sim_map._fused_spec
+    if not (sim_map._use_fused and spec is not None and fb.SERIES in [st.op for st in spec.stages]
+            and direct_route(sim_map)):
+        raise AssertionError("the cluster MAP simulator must take the builder tier with a series "
+                             "stage and the direct K4")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    z_map = seq.MAP(map_optimizer(CL_MAP_STEPS), n_samples=CL_MAP_N, num_steps=CL_MAP_STEPS,
+                    seed=0)
+    torch.cuda.synchronize()
+    t_map = time.perf_counter() - t0
+    counts["cluster_map"] = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with torch.no_grad():
+        x_map = prior.constrain(z_map)
+        chi_pix = prob.stats_pixels(sim_map, x_map)[1]
+        chi_pos = prob.stats_positions(sim_map, x_map)[1]
+    best = int(torch.argmin(torch.nan_to_num(chi_pix, nan=float("inf"))))
+    print(f"cluster MAP: {CL_MAP_N} starts x {CL_MAP_STEPS} steps on pixels + positions in "
+          f"{t_map:.2f} s ({1e3 * t_map / CL_MAP_STEPS:.3f} ms/step, host clock), peak device "
+          f"memory {peak:.3f} GiB; best pixel red-chi2 {float(chi_pix[best]):.4f} (positions "
+          f"{float(chi_pos[best]):.4f}); launches {json.dumps(counts['cluster_map'])} {clock()}",
+          flush=True)
+    n = CL_MAP_STEPS
+    check_launches("cluster MAP", counts["cluster_map"], banned=BUILDER_ROUTE_BANNED + (
+        "fused_builder_fwd_components", "dft_conv_fwd", "dft_conv_transpose"),
+        exact=dict(fused_builder_fwd_sum=n, fused_builder_bwd=n, direct_conv_fwd=n,
+                   direct_conv_transpose=n))
+    if not torch.isfinite(z_map).all():
+        raise AssertionError("cluster MAP output not finite")
+
+    # 4. SMC on the exact path from the MAP starts
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = seq.SMC(start=z_map, num_particles=CL_PARTICLES, num_ensembles=1,
+                  num_leapfrog_steps=CL_LEAPFROG, post_sampling_steps=CL_POST,
+                  max_stage=CL_MAX_STAGE, target="pixels+positions", auxiliar="none", seed=1)
+    torch.cuda.synchronize()
+    t_smc = time.perf_counter() - t0
+    counts["cluster_smc"] = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    sim_smc = seq._sim(CL_PARTICLES, exact=True)
+    last = res.post_samples[-1].reshape(-1, prior.d)
+    with torch.no_grad():
+        x_last = prior.constrain(last)
+        chi_pix = float(torch.mean(prob.stats_pixels(sim_smc, x_last)[1]))
+        chi_pos = float(torch.mean(prob.stats_positions(sim_smc, x_last)[1]))
+    leapfrogs = (res.num_moves + CL_POST) * CL_LEAPFROG
+    logz = res.log_evidence.tolist()
+    te = x_last["lens_mass"][1]["theta_E"]
+    print(f"cluster SMC: {CL_PARTICLES} particles from the MAP starts, L {CL_LEAPFROG}, target "
+          f"pixels+positions: {res.num_stages} stages to beta {res.final_beta.tolist()}, "
+          f"{res.num_moves} moves + {CL_POST} post steps = {leapfrogs} leapfrogs in "
+          f"{t_smc:.2f} s (tempering {res.tempering_s:.2f} s), {1e3 * t_smc / leapfrogs:.3f} "
+          f"ms/leapfrog on the host clock, peak device memory {peak:.3f} GiB", flush=True)
+    print(f"cluster SMC: logZ {logz}, posterior red-chi2 (last post draw) pixels {chi_pix:.4f}, "
+          f"positions {chi_pos:.4f}; theta_E* {float(te.mean()):.4f} +- {float(te.std()):.4f} "
+          f"(truth {float(truth['lens_mass'][1]['theta_E'][0]):.4f}); launches "
+          f"{json.dumps(counts['cluster_smc'])} {clock()}", flush=True)
+    if not (bool((res.final_beta == 1.0).all()) and res.num_stages < CL_MAX_STAGE):
+        raise AssertionError(f"cluster SMC did not reach beta = 1 inside {CL_MAX_STAGE} stages")
+    if not torch.isfinite(res.log_evidence).all() or not torch.isfinite(res.post_samples).all():
+        raise AssertionError(f"cluster SMC log-evidence {logz} or post samples not finite")
+    if not CL_CHI2[0] <= chi_pix <= CL_CHI2[1]:
+        raise AssertionError(f"cluster SMC posterior red-chi2 {chi_pix} outside {CL_CHI2}")
+    check_launches("cluster SMC", counts["cluster_smc"],
+                   need=("fused_builder_fwd_sum", "fused_builder_bwd"),
+                   banned=HMC_BANNED + BUILDER_ROUTE_BANNED)
+
+    def stage():
+        # one move: at ~2,800 launches a leapfrog the profiler's tables of a
+        # whole stage (8 moves) take minutes to read
+        out = fit_smc(prob, sim_smc, start=res.particles, num_particles=CL_PARTICLES,
+                      num_ensembles=1, num_leapfrog_steps=CL_LEAPFROG, post_sampling_steps=0,
+                      max_sampling_per_stage=1, max_stage=1, target="pixels+positions",
+                      auxiliar="none", seed=PROFILE_SEED)
+        return out.num_moves * CL_LEAPFROG + 1
+
+    profile_stage("cluster SMC", stage)
+    print(f"cluster: SMC stage profiled {clock()}", flush=True)
+
+    # 5. the lstsq MAP (BackwardProbModel, Shapelets(4)[lstsq]): K6/K7
+    phys_l, prior_l, _, _ = cluster_scene(lstsq=True, members=members)
+    prob_l = BackwardProbModel(prior_l, obs, background_rms=CL_BKG, exp_time=CL_EXP_TIME,
+                               device=dev)
+    seq_l = ModellingSequence(phys_l, prob_l, cfg, device=dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    z_l = seq_l.MAP(map_optimizer(CL_LSTSQ_STEPS), n_samples=CL_MAP_N,
+                    num_steps=CL_LSTSQ_STEPS, seed=0)
+    torch.cuda.synchronize()
+    t_l = time.perf_counter() - t0
+    counts["cluster_lstsq"] = launch_counts()
+    sim_l = seq_l._sim(CL_MAP_N)
+    with torch.no_grad():
+        chi_l = prob_l.stats_pixels(sim_l, prior_l.constrain(z_l))[1]
+    print(f"cluster lstsq MAP: {CL_MAP_N} x {CL_LSTSQ_STEPS} in {t_l:.2f} s "
+          f"({1e3 * t_l / CL_LSTSQ_STEPS:.3f} ms/step), {sim_l.depth} components, best pixel "
+          f"red-chi2 {float(torch.nan_to_num(chi_l, nan=float('inf')).min()):.4f}; launches "
+          f"{json.dumps(counts['cluster_lstsq'])} {clock()}", flush=True)
+    n = CL_LSTSQ_STEPS
+    check_launches("cluster lstsq MAP", counts["cluster_lstsq"],
+                   banned=("fused_builder_fwd_sum",) + BUILDER_ROUTE_BANNED,
+                   exact=dict(fused_builder_fwd_components=n, fused_builder_bwd=n))
+
+    # 6. K5, K6, K7 and the direct K4 at the phase's shapes and real grids
+    gen = torch.Generator(device=dev).manual_seed(12)
+    kernels = []
+    for phase, sim, z, pr, summed in (("cluster_map", sim_map, z_map, prior, True),
+                                      ("cluster_smc", sim_smc, res.particles.reshape(-1, prior.d),
+                                       prior, True),
+                                      ("cluster_lstsq", sim_l, z_l, prior_l, False)):
+        spec = sim._fused_spec
+        params = spec.pack(pr.constrain(z)).contiguous()
+        extras = spec.gather_extras(sim.img_x, sim.img_y)
+        where = f"cluster {phase.split('_')[1].upper()} bs={params.shape[0]}"
+        kernels += builder_rows(spec, params, sim.img_x, sim.img_y, summed, gen, phase, where,
+                                extras, fwd_rel=CLUSTER_FWD_REL if summed else None)
+        if phase == "cluster_map":
+            with torch.no_grad():
+                flat = fb.fused_builder_fwd(spec, params, sim.img_x, sim.img_y, extras)
+            conv = sim._conv
+            xin = flat.reshape(-1, conv.h, conv.w).contiguous()
+            ctc = torch.randn((xin.shape[0], conv.h // conv.pool, conv.w // conv.pool),
+                              generator=gen, device=dev)
+            rows, _ = direct_checks(conv, xin, ctc, where)
+            kernels += [dict(r, phase=phase) for r in rows]
+    print(f"cluster: kernels checked {clock()}", flush=True)
+    cluster_hot_loop(dev)
+    print(f"cluster phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return kernels, counts
+
+
+def cluster_hot_loop(dev):
+    """scripts/bench_cluster.py's hot loop at its defaults (200 members,
+    160 x 160 px over +-30", bs 64, order 3, chunks of 32): the direct
+    DPIESubhalo sum against the DPIESubhaloSeries, forward and forward +
+    gradient in the scales, ms a call on the host clock around a
+    synchronize (HOT_REPEATS calls after two warm-ups)."""
+    import numpy as np
+    import torch
+
+    from gigalens_tpu_torch.profiles.mass import DPIESubhalo, DPIESubhaloSeries
+
+    rng = np.random.default_rng(0)
+    cat = cluster_catalogue(HOT_G, 20.0, 0.3)
+    side = np.linspace(-30, 30, HOT_SIDE, dtype=np.float32)
+    X, Y = np.meshgrid(side, side)
+    x = torch.tensor(X.reshape(-1), device=dev)
+    y = torch.tensor(Y.reshape(-1), device=dev)
+    scales = torch.tensor(np.stack([rng.uniform(0.5, 1.5, HOT_BS), np.full(HOT_BS, 0.08),
+                                    np.full(HOT_BS, 1.6)], 1).astype(np.float32), device=dev)
+    direct = DPIESubhalo(lum_star=1.0, galaxy_catalogue=cat, chunk_size=HOT_CHUNK)
+    series = DPIESubhaloSeries(lum_star=1.0, galaxy_catalogue=cat, order=CL_ORDER,
+                               chunk_size=HOT_CHUNK)
+
+    def timed(fn):
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOT_REPEATS):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / HOT_REPEATS
+
+    def direct_sum(s):
+        return direct.deriv(x, y, theta_E=s[:, 0:1], r_core=s[:, 1:2], r_cut=s[:, 2:3])[0].sum()
+
+    def series_sum(s):
+        return series.deriv(x, y, theta_E=s[:, 0:1], r_cut=s[:, 2:3])[0].sum()
+
+    def fwd_grad(fn):
+        s = scales.clone().requires_grad_(True)
+        return torch.autograd.grad(fn(s), s)[0]
+
+    out = {}
+    with torch.no_grad():
+        out["direct fwd"] = timed(lambda: direct_sum(scales))
+    out["direct fwd+grad"] = timed(lambda: fwd_grad(direct_sum))
+    series.set_constants(dict(r_cut=1.6, r_core=0.08))
+    series.set_grid(x, y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    series.set_deriv()
+    torch.cuda.synchronize()
+    out["series precompute (once)"] = 1e3 * (time.perf_counter() - t0)
+    with torch.no_grad():
+        out["series fwd"] = timed(lambda: series_sum(scales))
+    out["series fwd+grad"] = timed(lambda: fwd_grad(series_sum))
+    print(f"cluster hot loop (G {HOT_G}, P {x.shape[0]}, bs {HOT_BS}, order {CL_ORDER}, chunks "
+          f"of {HOT_CHUNK}), ms: " + ", ".join(f"{k} {v:.3f}" for k, v in out.items()),
+          flush=True)
 
 
 def pipeline_kernel_checks(pipe, smc_res):
@@ -1464,10 +1901,13 @@ def main(argv=()):
     positions_phase(pipe)
     kernels += pipeline_kernel_checks(pipe, smc_res)
     counts.update(svi=rec["svi"]["counts"], hmc=rec["hmc"]["counts"], smc=rec["smc"]["counts"])
+    cluster_kernels, cluster_counts = cluster_phase()
+    kernels += cluster_kernels
+    counts.update(cluster_counts)
     # launches: each kernel's count in the phase of its row (K1-K4 the bench
     # scene's MAP, K5 and K7 family S's, K6 and K7-components family L's;
     # the rows at the SVI, HMC and SMC shapes the pipeline's SVI, HMC and
-    # SMC phases;
+    # SMC phases; the cluster rows the cluster MAP's, SMC's and lstsq MAP's;
     # the chain K4 at the wide PSF the chain MAP phase's, and at the bench
     # shape, where PSFConv takes the direct route, 0)
     out = [

@@ -55,28 +55,71 @@ def prior_from_reference(prior) -> Prior:
     return Prior(_map_tree(prior.tree, _port_distribution))
 
 
+def _catalogue(rel):
+    """A scaling relation's galaxy catalogue as numpy arrays."""
+    return {k: np.asarray(v) for k, v in rel.galaxy_cat.items()}
+
+
+def _port_series_state(prof, out):
+    """Copies a JAX ``MassSeries``' state onto its port: the expansion
+    constants and point, and the coefficients JAX has computed, as numpy.
+    The grid is not carried: the port binds the coefficients to its own
+    simulator's grid with ``set_grid`` (values compared once per tensor)."""
+    if prof._constants_dict:
+        out.set_constants({k: np.asarray(v) for k, v in prof._constants_dict.items()})
+    for name in ("_deriv_coefs", "_hessian_coefs"):
+        coefs = getattr(prof, name)
+        if coefs is not None:
+            setattr(out, name, torch.from_numpy(np.array(coefs, np.float32)))
+    return out
+
+
 def _port_profile(prof):
-    """The port's profile of the same class name and static settings."""
-    from gigalens_tpu_torch.profiles.light import CoreSersic, Sersic, SersicEllipse, Shapelets
-    from gigalens_tpu_torch.profiles.mass import EPL, NFW, NFW_ELLIPSE, SIE, SIS, Shear
+    """The port's profile of the same class name and static settings (and,
+    for the cluster profiles, catalogue and series state)."""
+    from gigalens_tpu_torch.profiles import light as L
+    from gigalens_tpu_torch.profiles import mass as M
 
     name = type(prof).__name__
     if name == "EPL":
-        return EPL(prof.niter)
+        return M.EPL(prof.niter)
+    if name == "Multipole":
+        return M.Multipole(prof.m)
     if name == "Shapelets":
-        return Shapelets(prof.n_max, use_lstsq=prof.use_lstsq)
-    light = {"Sersic": Sersic, "SersicEllipse": SersicEllipse, "CoreSersic": CoreSersic}
-    if name in light:
-        return light[name](use_lstsq=prof.use_lstsq)
-    mass = {"Shear": Shear, "SIS": SIS, "SIE": SIE, "NFW": NFW, "NFW_ELLIPSE": NFW_ELLIPSE}
+        return L.Shapelets(prof.n_max, use_lstsq=prof.use_lstsq)
+    if name in ("Sersic", "SersicEllipse", "CoreSersic", "Gaussian", "Moffat"):
+        return getattr(L, name)(use_lstsq=prof.use_lstsq)
+    if name == "ScalingRelation":
+        return M.ScalingRelation(_port_profile(prof.profile), prof.scaling_params,
+                                 prof.lum_star, prof.power, _catalogue(prof),
+                                 chunk_size=prof.chunk_size)
+    if name == "DPIESubhalo":
+        return M.DPIESubhalo(prof.lum_star, _catalogue(prof), scaling_params_power=prof.power,
+                             chunk_size=prof.chunk_size)
+    if name == "MassSeries":
+        return _port_series_state(prof, M.MassSeries(
+            _port_profile(prof.profile), prof.series_param, prof.amplitude_param, prof.order))
+    if name == "ScalingRelationSeries":
+        rel = prof._rel
+        return _port_series_state(prof, M.ScalingRelationSeries(
+            _port_profile(prof.profile), prof.series_param, prof.amplitude_param,
+            rel.scaling_params, rel.lum_star, rel.power, _catalogue(rel), order=prof.order,
+            chunk_size=rel.chunk_size))
+    if name == "DPIESubhaloSeries":
+        rel = prof._rel
+        return _port_series_state(prof, M.DPIESubhaloSeries(
+            rel.lum_star, _catalogue(rel), scaling_params_power=rel.power, order=prof.order,
+            chunk_size=rel.chunk_size))
+    mass = ("Shear", "SIS", "SIE", "NIE", "NFW", "NFW_ELLIPSE", "TNFW", "DPIS", "DPIE", "DPIEP",
+            "Hernquist", "HernquistEllipse", "PointMass", "MassSheet")
     if name in mass:
-        return mass[name]()
+        return getattr(M, name)()
     raise NotImplementedError(f"profile {name} is not ported yet")
 
 
 def phys_model_from_reference(phys):
     """The port's equivalent of a ``gigalens_tpu`` PhysicalModel: each
-    profile by class name (with ``niter``, ``n_max`` and ``use_lstsq``), the
+    profile by class name (with its static settings, :func:`_port_profile`), the
     same fixed constants and, for a multi-plane model, its redshifts and
     its recursion coefficients as they are (whatever cosmology made them)."""
     from gigalens_tpu_torch.model import PhysicalModel

@@ -171,14 +171,21 @@ class FusedSpec:
 def build_spec(phys_model) -> Optional[FusedSpec]:
     """A FusedSpec for ``phys_model``, or None where the JAX builder gives
     None: a multi-plane model (``mp_factors`` set: the stages ray-shoot one
-    plane), a profile with no stage, mixed lstsq and sampled amplitudes, or
-    no light profile. (The Taylor-series stage exists, but its profile,
-    ``MassSeries``, is not ported yet: ROADMAP M15.)"""
+    plane), a profile with no stage, a ``MassSeries`` whose series or
+    amplitude parameter is a constant, mixed lstsq and sampled amplitudes,
+    or no light profile.
+
+    A ``MassSeries`` becomes a SERIES stage: its series column is packed as
+    ``var - var0`` (a pack-time transform; ``var0`` is profile state) and
+    its coefficient grid arrives through an extra provider,
+    ``MassSeries.series_grid``, which gives None before ``set_deriv`` or off
+    the grid (the dispatch site then renders unfused, as in JAX)."""
     from gigalens_tpu_torch.profiles.light.sersic import CoreSersic, Sersic, SersicEllipse
     from gigalens_tpu_torch.profiles.light.shapelets import Shapelets
     from gigalens_tpu_torch.profiles.mass.epl import EPL as EPLProfile
     from gigalens_tpu_torch.profiles.mass.nfw import NFW as NFWProfile
     from gigalens_tpu_torch.profiles.mass.nfw import NFW_ELLIPSE
+    from gigalens_tpu_torch.profiles.mass.series import MassSeries
     from gigalens_tpu_torch.profiles.mass.shear import Shear
     from gigalens_tpu_torch.profiles.mass.sie import SIE
     from gigalens_tpu_torch.profiles.mass.sie import SIS as SISProfile
@@ -187,6 +194,7 @@ def build_spec(phys_model) -> Optional[FusedSpec]:
         return None
     pack_cols: list = []
     stages: list = []
+    providers: list = []
     names = []
 
     def add_cols(group, idx, consts, param_names):
@@ -219,6 +227,14 @@ def build_spec(phys_model) -> Optional[FusedSpec]:
         elif kind in mass_cols:
             op, pnames = mass_cols[kind]
             stages.append(Stage(op, add_cols("lens_mass", i, consts, pnames)))
+        elif isinstance(prof, MassSeries):
+            if prof.series_param in consts or prof.amplitude_param in consts:
+                return None
+            off = len(pack_cols)
+            pack_cols.append(("lens_mass", i, prof.series_param, prof.dv))
+            pack_cols.append(("lens_mass", i, prof.amplitude_param))
+            providers.append(lambda img_x, img_y, prof=prof: prof.series_grid(img_x))
+            stages.append(Stage(SERIES, off, order=prof.order, extra=len(providers) - 1))
         else:
             return None
         names.append(kind.__name__)
@@ -256,7 +272,7 @@ def build_spec(phys_model) -> Optional[FusedSpec]:
         if not add_light("source_light", i, prof, consts, True):
             return None
 
-    spec = FusedSpec(stages, pack_cols, "+".join(names))
+    spec = FusedSpec(stages, pack_cols, "+".join(names), providers)
     if not spec.light:
         return None
     if spec.any_lstsq and not spec.all_lstsq:

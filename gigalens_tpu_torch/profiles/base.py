@@ -111,6 +111,14 @@ def _needs_graph(*values):
         isinstance(v, torch.Tensor) and v.requires_grad for v in values)
 
 
+def _like(v, x):
+    """``v`` as a tensor on ``x``'s device: a tensor keeps its dtype,
+    anything else (a Python number, a numpy value) takes ``x``'s."""
+    if isinstance(v, torch.Tensor):
+        return v.to(x.device)
+    return torch.as_tensor(v, dtype=x.dtype, device=x.device)
+
+
 def _grad_leaf(t):
     """``t`` as a tensor that autograd can differentiate with respect to:
     itself (through a copy) when it already carries a graph, else a fresh

@@ -1,11 +1,13 @@
 """NFW-family deflectors (port of :mod:`gigalens_tpu.profiles.mass.nfw`:
-NFW and NFW_ELLIPSE).
+NFW, NFW_ELLIPSE and the truncated TNFW).
 
 Wright & Brainerd (2000) g(x), h(x) and F(x). Every piecewise function is a
 total ``torch.where`` with branch-safe inputs, so values and gradients stay
 finite everywhere. NFW has closed-form ``potential`` and ``hessian``;
-NFW_ELLIPSE takes the forward-mode default Hessian. TNFW is not ported yet
-(ROADMAP M12).
+NFW_ELLIPSE's Hessian is NFW's closed form at the stretched coordinates,
+scaled by the stretch on both sides and rotated back (the Jacobian of its
+``deriv``, as the JAX package's forward mode gives it); TNFW takes the
+forward-mode default.
 """
 from __future__ import annotations
 
@@ -13,7 +15,12 @@ import math
 
 import torch
 
-from gigalens_tpu_torch.profiles.base import MassProfile, ellipticity_to_polar, rotate
+from gigalens_tpu_torch.profiles.base import (
+    MassProfile,
+    ellipticity_to_polar,
+    hessian_rotate,
+    rotate,
+)
 
 _R_MIN = 1e-7
 _X_MIN = 1e-6
@@ -167,3 +174,73 @@ class NFW_ELLIPSE(MassProfile):
         fx = fx * torch.sqrt(1 - e)
         fy = fy * torch.sqrt(1 + e)
         return rotate(fx, fy, -phi)
+
+    def hessian(self, x, y, Rs, alpha_Rs, e1, e2, center_x, center_y):
+        """R(phi)^T S H_NFW(S R(phi) x) S R(phi), S = diag(sqrt(1-e), sqrt(1+e)):
+        one closed-form pass in place of two forward-mode ones."""
+        _, q, phi = ellipticity_to_polar(e1, e2)
+        e = torch.abs(1 - q**2) / (1 + q**2)
+        sm, sp = torch.sqrt(1.0 - e), torch.sqrt(1.0 + e)
+        xr, yr = rotate(x - center_x, y - center_y, phi)
+        f_xx, f_xy, _, f_yy = self._nfw.hessian(xr * sm, yr * sp, Rs, alpha_Rs, 0.0, 0.0)
+        f_xx, f_xy, f_yy = hessian_rotate(f_xx * (1.0 - e), f_xy * (sm * sp), f_yy * (1.0 + e),
+                                          -phi)
+        return f_xx, f_xy, f_xy, f_yy
+
+
+class TNFW(MassProfile):
+    """Truncated NFW (Baltz, Marshall & Oguri 2009), truncation tau = r_trunc/Rs."""
+
+    _name = "TNFW"
+    _params = ["Rs", "alpha_Rs", "r_trunc", "center_x", "center_y"]
+
+    # Taylor series of atanh(sqrt(1-x^2))/sqrt(1-x^2) at x = 1
+    _F_SERIES = (1.0, -2 / 3, 7 / 15, -12 / 35, 83 / 315)
+
+    @classmethod
+    def _F(cls, x):
+        x = torch.clamp(x, min=_X_MIN)
+        near = torch.abs(x - 1.0) < _BRANCH_DELTA
+        x_lo, x_hi = _branch_inputs(x)
+        lo = torch.arctanh(torch.sqrt(1.0 - x_lo**2)) / torch.sqrt(1.0 - x_lo**2)
+        hi = torch.arctan(torch.sqrt(x_hi**2 - 1.0)) / torch.sqrt(x_hi**2 - 1.0)
+        series = _horner(x - 1.0, cls._F_SERIES)
+        return torch.where(near, series, torch.where(x < 1, lo, hi))
+
+    @staticmethod
+    def _g(X, tau):
+        """Baltz+ 2009 lensing mass shape function, float32-stable: below
+        X_SWITCH the closed form's ~tau^2 log(x) terms cancel to O(x^2 log
+        x), so the exact small-x series takes over there."""
+        X_SWITCH = 0.1
+        X_safe = torch.clamp(X, min=X_SWITCH / 2)  # branch-safe input for the closed form
+
+        L = torch.log(X_safe / (tau + torch.sqrt(tau**2 + X_safe**2)))
+        F = TNFW._F(X_safe)
+        closed = tau**2 / (tau**2 + 1.0) ** 2 * (
+            (tau**2 + 1.0 + 2.0 * (X_safe**2 - 1.0)) * F
+            + tau * math.pi
+            + (tau**2 - 1.0) * torch.log(tau)
+            + torch.sqrt(tau**2 + X_safe**2) * (-math.pi + L * (tau**2 - 1.0) / tau)
+        )
+
+        ln2x = torch.log(2.0 / X)
+        ltau = torch.log(tau)
+        t2 = tau**2
+        denom = 4.0 * (t2 + 1.0) ** 2
+        a2 = 0.5 * ln2x + (1.0 - t2**2 + 2.0 * (1.0 - t2) * ltau - 2.0 * math.pi * tau) / denom
+        a4 = (3.0 * t2 - 1.0) / (8.0 * t2) * ln2x + (
+            -7.0 * t2**3 - 9.0 * t2**2 - t2 + 1.0 + 4.0 * (t2 - 1.0) * ltau
+            + 4.0 * math.pi * tau) / (8.0 * t2 * denom)
+        series = X**2 * a2 + X**4 * a4
+        return torch.where(X < X_SWITCH, series, closed)
+
+    def deriv(self, x, y, Rs, alpha_Rs, r_trunc, center_x, center_y):
+        Rs = torch.as_tensor(Rs)
+        rho0 = alpha_Rs / (4.0 * Rs**2 * (1.0 + math.log(0.5)))
+        dx, dy = x - center_x, y - center_y
+        R = torch.maximum(torch.sqrt(dx**2 + dy**2), 1e-4 * Rs)
+        X = R / Rs
+        tau = r_trunc / Rs
+        a = 4.0 * rho0 * Rs * self._g(X, tau) / X**2
+        return a * dx, a * dy

@@ -2,7 +2,7 @@
 :mod:`gigalens_tpu.profiles.mass.sie`).
 
 Closed forms of Kormann et al. (1994). The SIS carries an analytic Hessian;
-the SIE's is the forward-mode default. NIE is not ported yet (ROADMAP M12).
+the SIE's and the cored NIE's are the forward-mode default.
 """
 from __future__ import annotations
 
@@ -46,6 +46,35 @@ class SIE(MassProfile):
         of degree 0 in the centered coords, so ``psi = x~ . alpha`` exactly."""
         fx, fy = self.deriv(x, y, theta_E, e1, e2, center_x, center_y)
         return (x - center_x) * fx + (y - center_y) * fy
+
+
+class NIE(MassProfile):
+    """Non-singular isothermal ellipsoid: the SIE with the core radius
+    ``s_scale`` as a fit parameter."""
+
+    _name = "NIE"
+    _params = ["theta_E", "e1", "e2", "s_scale", "center_x", "center_y"]
+
+    def deriv(self, x, y, theta_E, e1, e2, s_scale, center_x, center_y):
+        _, q, phi = ellipticity_to_polar(e1, e2)
+        return _kormann_deriv(x, y, theta_E, q, phi, s_scale, center_x, center_y)
+
+    def potential(self, x, y, theta_E, e1, e2, s_scale, center_x, center_y):
+        """Keeton (2001) cored-isothermal potential: the Euler term plus the
+        core correction (which vanishes as ``s_scale -> 0``)."""
+        _, q, phi = ellipticity_to_polar(e1, e2)
+        b = theta_E * torch.sqrt(2 * q / (1 + q**2)) * torch.sqrt((1 + q**2) / 2)
+        s = s_scale * torch.sqrt((1 + q**2) / (2 * q**2))
+        xr, yr = rotate(x - center_x, y - center_y, phi)
+        psi = torch.sqrt(q**2 * (s**2 + xr**2) + yr**2)
+        root = torch.sqrt(torch.clamp(1.0 - q**2, min=1e-10))
+        fx = b / root * torch.arctan(root * xr / (psi + s))
+        fy = b / root * torch.arctanh(root * yr / (psi + q**2 * s))
+        pot = xr * fx + yr * fy
+        s_safe = torch.clamp(s, min=1e-12)
+        core = b * s * (0.5 * torch.log((psi + s) ** 2 + (1.0 - q**2) * xr**2)
+                        - torch.log((1.0 + q) * s_safe))
+        return pot - torch.where(s > 0, core, torch.zeros_like(core))
 
 
 class SIS(MassProfile):

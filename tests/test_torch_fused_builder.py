@@ -120,8 +120,8 @@ def test_components_lstsq_matches_jax():
 def test_series_stage_matches_jax():
     """The Taylor-series stage, with extras from a JAX
     MassSeries(DPIE(), "r_cut", "theta_E", order=3) passed in as numpy
-    (MassSeries itself is not ported yet, so the port's spec is built from
-    stage records)."""
+    (the port's spec is built from stage records here;
+    tests/test_torch_cluster.py builds it from the port's own MassSeries)."""
     from gigalens_tpu.profiles.mass.dpie import DPIE
     from gigalens_tpu.profiles.mass.series import MassSeries
 
