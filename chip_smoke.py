@@ -88,7 +88,24 @@
    with one stage profiled; a 50-step lstsq MAP (K6/K7); K5, K6, K7 and the
    direct K4 at the phase's shapes and grids against their twins; and
    scripts/bench_cluster.py's hot loop (direct sum against the series).
-11. Ends with the card line, a JSON line of per-kernel results and the ok
+11. Runs survey mode on scripts/bench_survey_production.py's catalogue at
+   full width (gigalens_tpu_torch.bench.survey_scene: 4 scenes, 60 px at
+   0.065", supersample 2, one PSF a scene, the bench prior and model)
+   through SurveySequence: MAP 64 starts a scene x 700 steps (K2/K3 and
+   the direct K4 once a scene each way, counted exactly; every scene's best
+   red-chi2 <= CHI2_GATE), the per-scene Laplace, SVI 256 draws a scene x
+   400 steps (counted the same way), grouped HMC (48 chains a scene, one
+   adaptation group a scene, static L 16, 250 + 1250, torch.fft: K2/K3 and
+   no K4;
+   each scene's posterior-mean red-chi2 in [0.85, 1.15], max split-R-hat
+   <= RHAT_GATE, finite min-ESS), SMC from the MAP starts (256 particles a
+   scene, L 3, 10 post steps; beta = 1 for every scene inside 200 stages,
+   finite (4,) logZ, scene-major post rows; one stage profiled), a 50-step
+   lstsq MAP with both lights linear (K6/K7 exactly 50, the direct K4 4 x
+   50 each way) whose components are held against four single-scene
+   simulators, and K2/K3 at the MAP shape and the direct K4 at one scene's
+   launch against their twins.
+12. Ends with the card line, a JSON line of per-kernel results and the ok
    line.
 
 Every phase raises on failure (nothing is caught), so any failure exits
@@ -1801,6 +1818,308 @@ def cluster_hot_loop(dev):
           flush=True)
 
 
+# the survey phase: scripts/bench_survey_production.py's catalogue at full
+# width (4 scenes, 60 px at 0.065", supersample 2, a PSF of its own a scene)
+# through SurveySequence: MAP, Laplace, SVI, grouped HMC, a short SMC and a
+# short lstsq MAP
+SV_S, SV_PIX = 4, 60
+SV_MAP_N, SV_MAP_STEPS = 64, 700
+SV_VI_N, SV_VI_STEPS = 256, 400
+# HMC: static L 16 with two mass windows (the script's --traj static). The
+# bench recipe (ChEES from L 3, one window, 250 + 750) left scene 1 at max
+# split-R-hat 1.055: its source's Ie / R / n banana mixes slowly (step size
+# 0.06 against ~0.2 elsewhere), and at L 16 its R-hat reaches the gate only
+# after ~1,250 results (1.070 at 375, 1.025 at 750, 1.019 at 1,250), as
+# the JAX package's run of this catalogue needed long chains (BASELINE.md:460)
+SV_HMC_N, SV_BURNIN, SV_RESULTS = 48, 250, 1250
+SV_TRAJ, SV_INIT_L, SV_MASS_WINDOWS = "none", 16, 2
+SV_PARTICLES, SV_SMC_L, SV_SMC_POST, SV_SMC_MAX_STAGE = 256, 3, 10, 200
+SV_LSTSQ_STEPS = 50
+# bench_survey_production.py:186-187: each scene's posterior-mean red-chi2
+SV_CHI2 = (0.85, 1.15)
+
+
+def survey_phase():
+    """Survey mode at full width on the card: the catalogue of
+    gigalens_tpu_torch.bench.survey_scene through SurveySequence. MAP (64
+    starts a scene x 700 steps; K2/K3 and the direct K4 once a scene each
+    way, counted exactly; every scene's best red-chi2 <= CHI2_GATE),
+    Laplace (one FD batch of S * 2d rows), SVI (256 draws a scene x 400
+    steps, counted the same way), grouped HMC (48 chains a scene, n_groups
+    S, on torch.fft: K2/K3 and no K4; per scene posterior-mean red-chi2 in
+    SV_CHI2, max split-R-hat <= RHAT_GATE, finite min-ESS), SMC from the MAP
+    starts (256 particles a scene, L 3, 10 post steps; beta = 1 for every
+    scene inside 200 stages, finite (S,) logZ, scene-major post rows; one
+    stage profiled), a 50-step lstsq MAP with both lights linear
+    (SurveyBackwardProbModel: K6/K7 exactly 50, the direct K4 4 x 50 each
+    way) and its components under the per-scene PSFs held against S
+    single-scene simulators (F-ref-6); then K2/K3 at the MAP shape and the
+    direct K4 at one scene's launch as kernel rows. Returns (kernels rows,
+    launch counts by phase)."""
+    import numpy as np
+    import torch
+
+    from gigalens_tpu_torch import PhysicalModel, bench
+    from gigalens_tpu_torch.inference import SurveySequence
+    from gigalens_tpu_torch.inference.sequence import map_optimizer, svi_optimizer
+    from gigalens_tpu_torch.inference.smc import fit_smc
+    from gigalens_tpu_torch.inference.survey import _SceneEnsembleAdapter
+    from gigalens_tpu_torch.model import SurveyBackwardProbModel, SurveyForwardProbModel
+    from gigalens_tpu_torch.ops.cuda import direct_conv as dcv
+    from gigalens_tpu_torch.ops.cuda import fused_render as fr
+    from gigalens_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from gigalens_tpu_torch.prob import Prior
+    from gigalens_tpu_torch.profiles.light import SersicEllipse
+    from gigalens_tpu_torch.simulator import LensSimulator
+    from gigalens_tpu_torch.utils import effective_sample_size, potential_scale_reduction
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    S = SV_S
+    prior, phys, cfg, obs = bench.survey_scene(S, SV_PIX, SUPERSAMPLE, dev)
+    spm = SurveyForwardProbModel(prior, obs, background_rms=0.2, exp_time=100.0, device=dev)
+    seq = SurveySequence(phys, spm, cfg, device=dev)
+    d = prior.d
+    counts, walls = {}, {}
+
+    @contextlib.contextmanager
+    def measured(name):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        counts[f"survey_{name}"] = launch_counts()
+
+    def per_scene_convs(sim, what):
+        conv = sim._conv
+        if not (sim._use_fused and conv is not None and conv.mode == "dft"
+                and conv.route == "direct" and conv.n_scenes == S
+                and all(isinstance(c, dcv.DirectConv) for c in conv._scene_convs)):
+            raise AssertionError(f"the survey {what} simulator must take the direct K4 once a "
+                                 f"scene, got {getattr(conv, 'route', None)}")
+        return conv
+
+    def k4_exact(n):
+        return dict(direct_conv_fwd=S * n, direct_conv_transpose=S * n, dft_conv_fwd=0,
+                    dft_conv_transpose=0)
+
+    # 1. MAP: 64 starts a scene
+    conv = per_scene_convs(seq._sim(S * SV_MAP_N), "MAP")
+    print(f"survey: {S} scenes, {SV_PIX} px at {bench.DELTA_PIX}\" supersample {SUPERSAMPLE} "
+          f"({conv.h * conv.w} px a render), PSFs {tuple(cfg.kernel.shape)} -> supersampled "
+          f"{tuple(conv.kernel.shape)}, K4 route {conv.route} for every scene", flush=True)
+    with measured("map"):
+        z_map = seq.MAP(map_optimizer(SV_MAP_STEPS), n_starts=SV_MAP_N, num_steps=SV_MAP_STEPS,
+                        seed=0)
+    best = seq.best_per_scene(z_map)
+    with torch.no_grad():
+        chi_best = spm.log_prob(seq._sim(S), best)[1]
+    print(f"survey MAP: {SV_MAP_N} starts x {S} scenes x {SV_MAP_STEPS} steps in "
+          f"{walls['map']:.2f} s ({1e3 * walls['map'] / SV_MAP_STEPS:.3f} ms/step, host clock); "
+          f"best red-chi2 by scene {[round(float(c), 4) for c in chi_best]}; launches "
+          f"{json.dumps(counts['survey_map'])}", flush=True)
+    n = SV_MAP_STEPS
+    check_launches("survey MAP", counts["survey_map"], exact=dict(
+        fused_render_fwd_omega=n, fused_render_bwd=n, **k4_exact(n)))
+    if not (torch.isfinite(z_map).all() and bool((chi_best <= CHI2_GATE).all())):
+        raise AssertionError(f"survey MAP: best red-chi2 {chi_best.tolist()} > {CHI2_GATE} "
+                             "or non-finite output")
+
+    # 2. Laplace, then SVI: 256 draws a scene
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    L0 = seq.laplace_scale_trils(best)
+    walls["laplace"] = time.perf_counter() - t0
+    per_scene_convs(seq._sim(S * SV_VI_N), "SVI")
+    with measured("svi"):
+        means, trils, losses = seq.SVI(best, svi_optimizer(SV_VI_STEPS), n_vi=SV_VI_N,
+                                       num_steps=SV_VI_STEPS, init_scales=L0, seed=1)
+    print(f"survey Laplace: {S} x {2 * d} rows in {walls['laplace']:.2f} s; SVI {SV_VI_N} draws "
+          f"x {S} scenes x {SV_VI_STEPS} steps in {walls['svi']:.2f} s "
+          f"({1e3 * walls['svi'] / SV_VI_STEPS:.3f} ms/step); ELBO loss by scene "
+          f"{[round(float(v), 2) for v in losses[0]]} -> "
+          f"{[round(float(v), 2) for v in losses[-1]]}; launches "
+          f"{json.dumps(counts['survey_svi'])}", flush=True)
+    n = SV_VI_STEPS
+    check_launches("survey SVI", counts["survey_svi"], exact=dict(
+        fused_render_fwd_omega=n, fused_render_bwd=n, **k4_exact(n)))
+    if not (np.isfinite(L0).all() and torch.isfinite(means).all()
+            and torch.isfinite(trils).all() and tuple(losses.shape) == (n, S)):
+        raise AssertionError("survey Laplace / SVI output not finite or of the wrong shape")
+
+    # 3. grouped HMC on the exact path
+    with measured("hmc"):
+        res = seq.HMC(means, trils, n_hmc=SV_HMC_N, num_burnin_steps=SV_BURNIN,
+                      num_results=SV_RESULTS, trajectory_adaptation=SV_TRAJ,
+                      init_l=SV_INIT_L, mass_adaptation=SV_MASS_WINDOWS, seed=2)
+    chains = res.samples.reshape(SV_RESULTS, S, SV_HMC_N, d)
+    rhat = [float(potential_scale_reduction(chains[:, s]).max()) for s in range(S)]
+    ess = [float(effective_sample_size(chains[:, s]).min()) for s in range(S)]
+    with torch.no_grad():
+        chi_post = spm.log_prob(seq._sim(S), seq.scene_samples(res).mean(1))[1]
+    div = res.divergences.reshape(S, SV_HMC_N).sum(1)
+    print(f"survey HMC: {SV_HMC_N} chains x {S} scenes, trajectory {SV_TRAJ} (L {SV_INIT_L}), "
+          f"{SV_MASS_WINDOWS} mass windows, "
+          f"{SV_BURNIN} + {SV_RESULTS} steps: {res.total_leapfrogs} leapfrogs in "
+          f"{walls['hmc']:.2f} s = {1e3 * walls['hmc'] / max(res.total_leapfrogs, 1):.3f} "
+          f"ms/leapfrog (host clock); step sizes {[round(float(e), 5) for e in res.step_size]}; "
+          f"by scene: posterior-mean red-chi2 {[round(float(c), 4) for c in chi_post]}, max "
+          f"split-R-hat {[round(r, 4) for r in rhat]}, min ESS {[round(e, 1) for e in ess]}, "
+          f"divergences {div.tolist()}; launches {json.dumps(counts['survey_hmc'])}",
+          flush=True)
+    check_launches("survey HMC", counts["survey_hmc"], HMC_NEED, HMC_BANNED)
+    if tuple(res.step_size.shape) != (S,) or not torch.isfinite(res.samples).all():
+        raise AssertionError(f"survey HMC: step sizes {tuple(res.step_size.shape)} or samples "
+                             "not finite")
+    for s in range(S):
+        if not (SV_CHI2[0] <= float(chi_post[s]) <= SV_CHI2[1] and rhat[s] <= RHAT_GATE
+                and math.isfinite(ess[s])):
+            raise AssertionError(f"survey HMC scene {s}: posterior red-chi2 {float(chi_post[s])} "
+                                 f"outside {SV_CHI2}, max split-R-hat {rhat[s]} > {RHAT_GATE} "
+                                 f"or min ESS {ess[s]} not finite")
+
+    # 4. SMC from the MAP starts, one ensemble a scene
+    with measured("smc"):
+        sres = seq.SMC(start=z_map, num_particles=SV_PARTICLES, num_leapfrog_steps=SV_SMC_L,
+                       post_sampling_steps=SV_SMC_POST, max_stage=SV_SMC_MAX_STAGE, seed=1)
+    n_rows = S * SV_PARTICLES
+    sim_smc = seq._sim(n_rows, exact=True)
+    last = sres.post_samples[-1]
+    with torch.no_grad():
+        chi_own = spm.log_prob(sim_smc, last)[1].reshape(S, -1).mean(1)
+        swapped = last.reshape(S, SV_PARTICLES, d).roll(1, dims=0).reshape(n_rows, d)
+        chi_swap = spm.log_prob(sim_smc, swapped)[1].reshape(S, -1).roll(-1, dims=0).mean(1)
+    leapfrogs = (sres.num_moves + SV_SMC_POST) * SV_SMC_L
+    print(f"survey SMC: {SV_PARTICLES} particles x {S} scenes from the MAP starts, L "
+          f"{SV_SMC_L}: {sres.num_stages} stages to beta {sres.final_beta.tolist()}, "
+          f"{sres.num_moves} moves + {SV_SMC_POST} post steps = {leapfrogs} leapfrogs in "
+          f"{walls['smc']:.2f} s (tempering {sres.tempering_s:.2f} s), "
+          f"{1e3 * walls['smc'] / leapfrogs:.3f} ms/leapfrog; logZ {sres.log_evidence.tolist()}; "
+          f"last post draw red-chi2 by scene {[round(float(c), 4) for c in chi_own]} (each "
+          f"scene's rows against the next scene's data: "
+          f"{[round(float(c), 1) for c in chi_swap]}); launches "
+          f"{json.dumps(counts['survey_smc'])}", flush=True)
+    check_launches("survey SMC", counts["survey_smc"], HMC_NEED, HMC_BANNED)
+    if not (bool((sres.final_beta == 1.0).all()) and sres.num_stages < SV_SMC_MAX_STAGE):
+        raise AssertionError(f"survey SMC did not reach beta = 1 for every scene inside "
+                             f"{SV_SMC_MAX_STAGE} stages")
+    if tuple(sres.log_evidence.shape) != (S,) or not torch.isfinite(sres.log_evidence).all():
+        raise AssertionError(f"survey SMC logZ {sres.log_evidence.tolist()}")
+    if (tuple(sres.post_samples.shape) != (SV_SMC_POST, n_rows, d)
+            or not bool((chi_own < chi_swap).all())):
+        raise AssertionError("survey SMC post samples are not scene-major (a scene's rows fit "
+                             "another scene's data better than their own)")
+
+    def stage():
+        out = fit_smc(_SceneEnsembleAdapter(spm, SV_PARTICLES), sim_smc, start=sres.particles,
+                      num_particles=SV_PARTICLES, num_ensembles=S,
+                      num_leapfrog_steps=SV_SMC_L, post_sampling_steps=0, max_stage=1,
+                      seed=PROFILE_SEED)
+        return out.num_moves * SV_SMC_L + 1
+
+    profile_stage("survey SMC", stage)
+
+    # 5. lstsq MAP: both lights linear (depth 2), K6/K7 and the direct K4
+    tree = prior.tree
+    prior_l = Prior(dict(lens_mass=tree["lens_mass"], **{
+        k: [{n: v for n, v in tree[k][0].items() if n != "Ie"}]
+        for k in ("lens_light", "source_light")}))
+    phys_l = PhysicalModel(phys.lenses, [SersicEllipse(use_lstsq=True)],
+                           [SersicEllipse(use_lstsq=True)])
+    prob_l = SurveyBackwardProbModel(prior_l, obs, 0.2, 100.0, device=dev)
+    seq_l = SurveySequence(phys_l, prob_l, cfg, device=dev)
+    sim_l = seq_l._sim(S * SV_MAP_N)
+    per_scene_convs(sim_l, "lstsq MAP")
+    if sim_l._fused_spec is None or not sim_l._fused_spec.all_lstsq:
+        raise AssertionError("the survey lstsq simulator must take the builder's components")
+    with measured("lstsq"):
+        z_l = seq_l.MAP(map_optimizer(SV_LSTSQ_STEPS), n_starts=SV_MAP_N,
+                        num_steps=SV_LSTSQ_STEPS, seed=0)
+    with torch.no_grad():
+        chi_l = prob_l.log_prob(sim_l, z_l)[1].reshape(S, -1)
+    print(f"survey lstsq MAP: {SV_MAP_N} x {S} x {SV_LSTSQ_STEPS} in {walls['lstsq']:.2f} s "
+          f"({1e3 * walls['lstsq'] / SV_LSTSQ_STEPS:.3f} ms/step), {sim_l.depth} components, "
+          f"best red-chi2 by scene "
+          f"{[round(float(c), 4) for c in torch.nan_to_num(chi_l, nan=float('inf')).amin(1)]}; "
+          f"launches {json.dumps(counts['survey_lstsq'])}", flush=True)
+    n = SV_LSTSQ_STEPS
+    check_launches("survey lstsq MAP", counts["survey_lstsq"], banned=("fused_builder_fwd_sum",),
+                   exact=dict(fused_builder_fwd_components=n, fused_builder_bwd=n,
+                              **k4_exact(n)))
+    # F-ref-6 on the card: each row's components meet its own scene's PSF
+    params_l = prior_l.constrain(z_l)
+    ones = torch.ones((SV_PIX, SV_PIX), device=dev)
+    with torch.no_grad():
+        got = sim_l.lstsq_simulate(params_l, ones, ones, return_stacked=True)
+        want = []
+        for s in range(S):
+            sim1 = LensSimulator(phys_l, dataclasses.replace(cfg, kernel=cfg.kernel[s]),
+                                 bs=SV_MAP_N, device=dev)
+            rows_s = slice(s * SV_MAP_N, (s + 1) * SV_MAP_N)
+            part = {g: [{k: v[rows_s] for k, v in p.items()} for p in ps]
+                    for g, ps in params_l.items()}
+            want.append(sim1.lstsq_simulate(part, ones, ones, return_stacked=True))
+        want = torch.cat(want)
+    rel, _ = check_rel("survey lstsq components vs single-scene simulators", got, want,
+                       RENDER_REL)
+    print(f"survey lstsq: stacked components {tuple(got.shape)} against {S} single-scene "
+          f"simulators: rel err {rel:.3e}", flush=True)
+
+    # 6. K2/K3 at the MAP shape, the direct K4 at one scene's launch
+    gen = torch.Generator(device=dev).manual_seed(13)
+    sim_map = seq._sim(S * SV_MAP_N)
+    params = fr.pack_params(prior.constrain(z_map)).contiguous()
+    where = f"survey MAP bs={params.shape[0]}"
+    kernels, out = render_rows(params, sim_map, gen, "survey_map", where)
+    h, w = conv.h, conv.w
+    xin = out.reshape(S, SV_MAP_N, h, w)[0].contiguous()
+    ctc = torch.randn((SV_MAP_N, h // conv.pool, w // conv.pool), generator=gen, device=dev)
+    rows, _ = direct_checks(conv, xin, ctc, f"survey one scene's launch bs={SV_MAP_N}")
+    kernels += [dict(r, phase="survey_map") for r in rows]
+    print(f"survey phase: {time.perf_counter() - t_phase:.1f} s; walls (s) "
+          + ", ".join(f"{k} {v:.2f}" for k, v in walls.items()), flush=True)
+    return kernels, counts
+
+
+def render_rows(params, sim, gen, phase, where):
+    """K2 and K3 at ``params``' shape on ``sim``'s grid, each against its
+    float64 twin with kernel_checks' tolerances and timed against its
+    float32 twin with CUDA events. Returns ([K2 row, K3 row], K2's image)."""
+    import torch
+
+    from gigalens_tpu_torch.ops.cuda import fused_render as fr
+
+    bs, x, y, niter = params.shape[0], sim.img_x, sim.img_y, sim._fused_niter
+    out, ox, oy = fr.fused_render_fwd(params, x, y, niter, save_omega=True)
+    torch.cuda.synchronize()
+    ref = [fr.fused_render_fwd_reference(params[i:i + 50].double(), x.double(),
+                                         y.double(), niter) for i in range(0, bs, 50)]
+    out64, ox64, oy64 = (torch.cat(t) for t in zip(*ref))
+    del ref
+    e2 = check_close(f"K2 out vs f64 twin ({where})", out, out64, FWD_RTOL, FWD_ATOL)
+    e_om = max(check_close(f"K2 ox vs f64 twin ({where})", ox, ox64, 0.0, OMEGA_ATOL),
+               check_close(f"K2 oy vs f64 twin ({where})", oy, oy64, 0.0, OMEGA_ATOL))
+    del out64, ox64, oy64
+    k2_repeatable(params, x, y, niter, (out, ox, oy), where)
+    ms = cuda_ms(lambda: fr.fused_render_fwd(params, x, y, niter, save_omega=True))
+    pms = cuda_ms(lambda: fr.fused_render_fwd_reference(params, x, y, niter), reps=3,
+                  warmup=1)
+    b_ms, b_by = bound(count_ops(lambda: fr.fused_render_fwd_onestage(params, x, y, niter)),
+                       [params, x, y, out, ox, oy])
+    row = dict(name=f"fused_render_fwd<true> (K2) at {where}",
+               key="fused_render_fwd_omega", phase=phase, route="cuda",
+               source="gigalens_tpu_torch/csrc/fused_render.cu",
+               replaces="gigalens_tpu/ops/pallas/fused_render.py:246",
+               max_abs_err=max(e2, e_om), ms=ms, plain_ms=pms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=None)
+    print(f"K2 at {where}: max|err| out {e2:.3e} omega {e_om:.3e}  kernel {ms:.3f} ms  "
+          f"twin {pms:.3f} ms  bound {b_ms:.3f} ms ({b_by})", flush=True)
+    ct = torch.randn(out.shape, generator=gen, device=out.device)
+    return [row, dict(k3_check(params, x, y, ox, oy, ct, niter, where), phase=phase)], out
+
+
 def pipeline_kernel_checks(pipe, smc_res):
     """K2/K3 at the pipeline's SVI shape (n_vi = 1000 draws from the fitted
     surrogate, as the SVI phase draws them), HMC shape (the 50 chains' last
@@ -1820,35 +2139,10 @@ def pipeline_kernel_checks(pipe, smc_res):
                      ("smc", smc_res.particles.reshape(-1, pipe.prior.d))):
         sim = pipe.seq._sim(z.shape[0], exact=phase != "svi")
         params = fr.pack_params(pipe.prior.constrain(z)).contiguous()
-        bs, x, y, niter = params.shape[0], sim.img_x, sim.img_y, sim._fused_niter
+        bs = params.shape[0]
         where = f"{phase.upper()} bs={bs}"
-        out, ox, oy = fr.fused_render_fwd(params, x, y, niter, save_omega=True)
-        torch.cuda.synchronize()
-        ref = [fr.fused_render_fwd_reference(params[i:i + 50].double(), x.double(),
-                                             y.double(), niter) for i in range(0, bs, 50)]
-        out64, ox64, oy64 = (torch.cat(t) for t in zip(*ref))
-        del ref
-        e2 = check_close(f"K2 out vs f64 twin ({where})", out, out64, FWD_RTOL, FWD_ATOL)
-        e_om = max(check_close(f"K2 ox vs f64 twin ({where})", ox, ox64, 0.0, OMEGA_ATOL),
-                   check_close(f"K2 oy vs f64 twin ({where})", oy, oy64, 0.0, OMEGA_ATOL))
-        del out64, ox64, oy64
-        k2_repeatable(params, x, y, niter, (out, ox, oy), where)
-        ms = cuda_ms(lambda: fr.fused_render_fwd(params, x, y, niter, save_omega=True))
-        pms = cuda_ms(lambda: fr.fused_render_fwd_reference(params, x, y, niter), reps=3,
-                      warmup=1)
-        b_ms, b_by = bound(count_ops(lambda: fr.fused_render_fwd_onestage(params, x, y, niter)),
-                           [params, x, y, out, ox, oy])
-        kernels.append(dict(name=f"fused_render_fwd<true> (K2) at {where}",
-                            key="fused_render_fwd_omega", phase=phase, route="cuda",
-                            source="gigalens_tpu_torch/csrc/fused_render.cu",
-                            replaces="gigalens_tpu/ops/pallas/fused_render.py:246",
-                            max_abs_err=max(e2, e_om), ms=ms, plain_ms=pms, bound_ms=b_ms,
-                            bound_by=b_by, library_ms=None))
-        print(f"K2 at {where}: max|err| out {e2:.3e} omega {e_om:.3e}  kernel {ms:.3f} ms  "
-              f"twin {pms:.3f} ms  bound {b_ms:.3f} ms ({b_by})", flush=True)
-
-        ct = torch.randn(out.shape, generator=gen, device=dev)
-        kernels.append(dict(k3_check(params, x, y, ox, oy, ct, niter, where), phase=phase))
+        rows, out = render_rows(params, sim, gen, phase, where)
+        kernels += rows
         if phase != "svi":
             continue
 
@@ -1904,10 +2198,14 @@ def main(argv=()):
     cluster_kernels, cluster_counts = cluster_phase()
     kernels += cluster_kernels
     counts.update(cluster_counts)
+    survey_kernels, survey_counts = survey_phase()
+    kernels += survey_kernels
+    counts.update(survey_counts)
     # launches: each kernel's count in the phase of its row (K1-K4 the bench
     # scene's MAP, K5 and K7 family S's, K6 and K7-components family L's;
     # the rows at the SVI, HMC and SMC shapes the pipeline's SVI, HMC and
     # SMC phases; the cluster rows the cluster MAP's, SMC's and lstsq MAP's;
+    # the survey rows the survey MAP's (the direct K4: all S scenes' launches);
     # the chain K4 at the wide PSF the chain MAP phase's, and at the bench
     # shape, where PSFConv takes the direct route, 0)
     out = [

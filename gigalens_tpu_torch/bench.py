@@ -136,6 +136,51 @@ def bench_scene(num_pix=80, niter=None):
     return phys, cfg, niter
 
 
+def survey_psfs(n_scenes):
+    """Distinct per-scene PSFs (``scripts/bench_survey_production.py:61-81``
+    with its fallback base, as the reference's ``psf.npy`` is not in the
+    repo): a 13x13 Gaussian rotated by k * 90 degrees and smoothed by a
+    scene-dependent Gaussian of sigma 0.5 + 0.35 k native pixels."""
+    g = np.exp(-((np.arange(13) - 6) ** 2 + (np.arange(13)[:, None] - 6) ** 2) / 5.0)
+    base = (g / g.sum()).astype(np.float32)
+    out = []
+    for s in range(n_scenes):
+        k = np.rot90(base, k=s % 4).copy()
+        sig = 0.5 + 0.35 * s
+        xx = np.arange(-3, 4)
+        g1 = np.exp(-(xx**2) / (2 * sig**2))
+        g1 /= g1.sum()
+        k = np.apply_along_axis(lambda r: np.convolve(r, g1, mode="same"), 0, k)
+        k = np.apply_along_axis(lambda r: np.convolve(r, g1, mode="same"), 1, k)
+        out.append((k / k.sum()).astype(np.float32))
+    return np.stack(out)
+
+
+def survey_scene(n_scenes, num_pix=60, supersample=SUPERSAMPLE, device="cuda"):
+    """``scripts/bench_survey_production.py``'s catalogue: (prior, phys,
+    sim_config, observations (S, H, W) numpy). The bench prior and the
+    EPL(niter)+Shear, SersicEllipse lens light and source model at 0.065"
+    with :func:`survey_psfs`; the truths are S prior draws from a
+    ``torch.Generator`` seeded 42 on ``device``, rendered by the port, and
+    observed at background_rms 0.2 / exp_time 100 with numpy noise seeded 1."""
+    from gigalens_tpu_torch import PhysicalModel, SimulatorConfig
+    from gigalens_tpu_torch.profiles.light import SersicEllipse
+    from gigalens_tpu_torch.profiles.mass import EPL, Shear
+    from gigalens_tpu_torch.simulator import LensSimulator
+
+    prior = bench_prior()
+    phys = PhysicalModel([EPL(epl_niter()), Shear()], [SersicEllipse()], [SersicEllipse()])
+    cfg = SimulatorConfig(delta_pix=DELTA_PIX, num_pix=num_pix, supersample=supersample,
+                          kernel=survey_psfs(n_scenes))
+    truths = prior.sample(torch.Generator(device=device).manual_seed(42), n_scenes)
+    with torch.no_grad():
+        imgs = LensSimulator(phys, cfg, bs=n_scenes, device=device).simulate(truths)
+    imgs = imgs.reshape(n_scenes, num_pix, num_pix).cpu().numpy()
+    noise = np.random.default_rng(1).normal(size=imgs.shape).astype(np.float32)
+    obs = imgs + noise * np.sqrt(BKG**2 + np.clip(imgs, 0, None) / EXP_TIME)
+    return prior, phys, cfg, obs.astype(np.float32)
+
+
 def observe(img, gen, bkg=BKG, exp_time=EXP_TIME):
     """Gaussian + Poisson noise at the bench's background and exposure."""
     return img + torch.randn(img.shape, generator=gen, device=img.device) * torch.sqrt(

@@ -21,15 +21,18 @@ class SimulatorConfig:
         delta_pix: pixel scale (angular size of one native pixel).
         num_pix: width of the simulated image in (native) pixels; int or (nx, ny).
         supersample: supersampling factor for rendering.
-        kernel: optional PSF kernel sampled at the native pixel scale.
+        kernel: optional PSF kernel sampled at the native pixel scale, or
+            an (S, kh, kw) stack of one kernel a scene (survey mode).
         transform_pix2angle: optional 2x2 affine pixel->angle matrix.
         pix_region: optional boolean mask of live native pixels.
-        use_fft: legacy PSF switch — True (FFT), None (auto). False (direct
-            convolution) is not ported yet.
+        use_fft: legacy PSF switch — True (FFT), False (direct
+            convolution), None (auto).
         psf_mode: explicit PSF convolution path: "dft" (DFT-by-matmul with
             the supersample pool folded in; the hand-written kernel on CUDA),
-            "fft" (``torch.fft``), or None (auto: dft on CUDA, fft
-            elsewhere). Overrides use_fft when set.
+            "fft" (``torch.fft``), "direct" (``F.conv2d``; a per-scene stack
+            takes "fft" instead), or None (auto: direct for a supersampled
+            kernel of at most 81 taps, else dft on CUDA and fft elsewhere).
+            Overrides use_fft when set.
         use_fused_render: fused deflect+render kernel for the EPL+Shear /
             SersicEllipse model family: True, False, or None (auto: on when
             the simulator's device is CUDA and the model matches the pattern).

@@ -8,7 +8,9 @@ waits for the card only where a ``progress`` callback asks for a value.
 
 ``laplace_scale_tril`` takes the Hessian of the unconstrained log posterior
 at the MAP point, by central differences of one batched gradient
-(``method="fd"``) or by double backward (``method="exact"``).
+(``method="fd"``) or by double backward (``method="exact"``);
+``laplace_scale_trils_survey`` takes the FD Hessians of S scenes' MAP
+points from one scene-major gradient batch.
 """
 from __future__ import annotations
 
@@ -94,6 +96,34 @@ def _floored_inv_chol(h, d, floor_ratio):
     return torch.linalg.cholesky(cov + torch.trace(cov) / d * 1e-6 * eye)
 
 
+def _fd_hessians(prob_model, simulator, zs):
+    """(S, d, d) Hessians of the negative log posterior at the rows of ``zs``
+    (S, d), by central differences of one gradient of S * 2d scene-major
+    rows (row block s: scene s's d forward steps, then its d backward
+    ones), with the step ``1e-3 * max(|z|, 1)`` per dimension."""
+    S, d = zs.shape
+    hstep = 1e-3 * torch.clamp(torch.abs(zs), min=1.0)  # (S, d)
+    pert = hstep[:, :, None] * torch.eye(d, dtype=zs.dtype, device=zs.device)
+    batch = torch.cat([zs[:, None] + pert, zs[:, None] - pert], dim=1).reshape(S * 2 * d, d)
+    batch.requires_grad_(True)
+    lp = prob_model.log_prob(simulator, batch)[0]
+    (g,) = torch.autograd.grad(-torch.sum(lp), batch)
+    g = g.reshape(S, 2 * d, d)
+    return (g[:, :d] - g[:, d:]) / (2.0 * hstep[:, :, None])
+
+
+def laplace_scale_trils_survey(prob_model, simulator, z_best, floor_ratio: float = 1e-6):
+    """Per-scene Laplace factors for survey mode: ``laplace_scale_tril``'s
+    FD method at each of the S scenes' MAP points ``z_best`` (S, d), from
+    one gradient of S * 2d scene-major rows (the simulator must be built
+    with ``bs = S * 2 * d``; ``prob_model`` scores scene-major batches).
+    Returns the (S, d, d) factors on the simulator's device."""
+    zs = torch.as_tensor(z_best, dtype=torch.float32, device=simulator.device).detach()
+    d = zs.shape[-1]
+    h = _fd_hessians(prob_model, simulator, zs)
+    return torch.stack([_floored_inv_chol(hs, d, floor_ratio) for hs in h])
+
+
 def laplace_scale_tril(prob_model, simulator, z_best, floor_ratio: float = 1e-6,
                        method: str = "exact"):
     """Cholesky factor of the Laplace covariance at the MAP point.
@@ -114,13 +144,7 @@ def laplace_scale_tril(prob_model, simulator, z_best, floor_ratio: float = 1e-6,
     d = z.shape[0]
 
     if method == "fd":
-        hstep = 1e-3 * torch.clamp(torch.abs(z), min=1.0)
-        pert = torch.diag(hstep)
-        batch = torch.cat([z[None, :] + pert, z[None, :] - pert], dim=0).requires_grad_(True)
-        lp = prob_model.log_prob(simulator, batch)[0]
-        (g,) = torch.autograd.grad(-torch.sum(lp), batch)
-        h = (g[:d] - g[d:]) / (2.0 * hstep[:, None])
-        return _floored_inv_chol(h, d, floor_ratio)
+        return _floored_inv_chol(_fd_hessians(prob_model, simulator, z[None])[0], d, floor_ratio)
     if method != "exact":
         raise ValueError(f"unknown Laplace method {method!r}: use 'fd' or 'exact'")
 

@@ -6,6 +6,9 @@
   optional point-source time delays and image fluxes.
 * :class:`BackwardProbModel` scores pixels with the observed-image noise
   map and linear (lstsq) light amplitudes.
+* :class:`SurveyForwardProbModel` and :class:`SurveyBackwardProbModel` are
+  their survey twins: S observations (S, H, W) scored in one batch of
+  S * K scene-major rows, row ``s * K + k`` against scene ``s``.
 
 Log-densities are computed on the unconstrained matrix ``z`` of shape
 ``(bs, d)``; ``prior.constrain(z)`` maps it to the physical params tree and
@@ -388,6 +391,139 @@ class ForwardProbModel(VersionedAttrs, _SamplerFacade):
         return total
 
 
+class SurveyForwardProbModel(ForwardProbModel):
+    """Scene-batched pixel (and position) likelihood: one model scoring S
+    independent observations of one camera and one model family.
+
+    ``observed_images`` is (S, H, W), and every parameter batch is
+    scene-major with ``bs = S * K`` rows: row ``s * K + k`` is scored against
+    ``observed_images[s]``. ``background_rms`` / ``exp_time`` are scalars
+    shared by the scenes or (S,) arrays; ``error_map`` is one (H, W) map
+    shared by the scenes or (S, H, W). The pixel math is
+    :class:`ForwardProbModel`'s, so each row equals the single-scene model's.
+
+    Positions: ``centroids_*`` are length-S lists of 1-D arrays, one image
+    group a scene. Scenes may have different image counts: each is padded
+    to the longest with repeats of its own first image (error 1), masked
+    out of every sum, so the padded rays and Hessians stay finite.
+    """
+
+    def __init__(
+        self,
+        prior: Prior,
+        observed_images,
+        background_rms=None,
+        exp_time=None,
+        error_map=None,
+        centroids_x=None,
+        centroids_y=None,
+        centroids_errors_x=None,
+        centroids_errors_y=None,
+        device=None,
+    ):
+        obs = np.asarray(observed_images, np.float32)
+        if obs.ndim != 3:
+            raise ValueError(f"observed_images must be (S, H, W); got {obs.shape}")
+        super().__init__(prior, include_pixels=False, include_positions=False, device=device)
+        S = self.n_scenes = int(obs.shape[0])
+
+        def f32(v):
+            return torch.as_tensor(np.asarray(v, np.float32), device=self.device)
+
+        self.include_pixels = True
+        self.observed_image = f32(obs)
+        if error_map is not None:
+            em = np.asarray(error_map, np.float32)
+            if em.shape == obs.shape[1:]:
+                em = np.broadcast_to(em, obs.shape)  # one map shared by the scenes
+            if em.shape != obs.shape:
+                raise ValueError(
+                    f"error_map shape {em.shape} must be {obs.shape[1:]} (shared) or match "
+                    f"observed_images {obs.shape}")
+            self.error_map = f32(em)
+        else:
+            # (1 or S, 1, 1, 1) against the (S, K, H, W) renders
+            self.background_rms = f32(background_rms).reshape(-1, 1, 1, 1)
+            self.exp_time = f32(exp_time).reshape(-1, 1, 1, 1)
+
+        if centroids_x is not None:
+            if len(centroids_x) != S:
+                raise ValueError(f"centroids_x must list {S} scenes; got {len(centroids_x)}")
+            counts = [int(np.size(np.asarray(c))) for c in centroids_x]
+            for s, n in enumerate(counts):
+                if n == 0:
+                    raise ValueError(
+                        f"scene {s} has an empty centroid list; omit the position data "
+                        "entirely or drop that scene from the position-constrained catalogue")
+            n_max = max(counts)
+
+            def pad(arrs, fill_from_first):
+                out = np.zeros((S, n_max), np.float32)
+                for s, a in enumerate(arrs):
+                    a = np.asarray(a, np.float32).reshape(-1)
+                    out[s, : a.size] = a
+                    out[s, a.size:] = a[0] if fill_from_first else 1.0
+                return f32(out)
+
+            self.pos_x = pad(centroids_x, True)
+            self.pos_y = pad(centroids_y, True)
+            self.pos_ex = pad(centroids_errors_x, False)
+            self.pos_ey = pad(centroids_errors_y, False)
+            mask = np.arange(n_max)[None, :] < np.asarray(counts)[:, None]
+            self.pos_mask = f32(mask)
+            self.include_positions = True
+            # the MAP loss's event size is one scalar for every row: the
+            # scenes' mean position count, rounded as the JAX package does
+            self.n_position = int(round(2 * float(mask.sum()) / S))
+
+    def _scene_rows(self, simulator):
+        if simulator.bs % self.n_scenes:
+            raise ValueError(
+                f"batch {simulator.bs} is not a multiple of n_scenes={self.n_scenes}")
+        return simulator.bs // self.n_scenes
+
+    def stats_pixels(self, simulator, params):
+        """(log_like, reduced_chi2), each (S * K,), of the pixel data."""
+        S, K = self.n_scenes, self._scene_rows(simulator)
+        im = simulator.simulate(params).reshape(S, K, *self.observed_image.shape[-2:])
+        obs = self.observed_image[:, None]  # (S, 1, H, W)
+        if self.error_map is not None:
+            err_map = self.error_map[:, None]
+        else:
+            # clipped like ForwardProbModel.stats_pixels
+            err_map = torch.sqrt(self.background_rms**2 + torch.clamp(im, min=0.0) / self.exp_time)
+        mask = simulator.img_region
+        resid = (im - obs) / err_map
+        chi2 = torch.sum(resid**2 * mask, dim=(-2, -1))  # (S, K)
+        normalization = torch.sum(torch.log(2 * math.pi * err_map**2) * mask, dim=(-2, -1))
+        log_like = -0.5 * (chi2 + normalization)
+        return log_like.reshape(S * K), (chi2 / simulator.n_live_pix).reshape(S * K)
+
+    def stats_positions(self, simulator, params):
+        """(log_like, reduced_chi2), each (S * K,), of the scenes' image
+        positions: :meth:`ForwardProbModel.stats_positions` a scene, with
+        the scene's (1, n) centroids against its rows' (K, 1) parameters
+        through the simulator's ``beta`` and :func:`_clamped_det` (per
+        sample, also for EPL: the survey case of F-ref-5)."""
+        if not self.include_positions:
+            raise ValueError("no centroids configured on this survey model")
+        S, K = self.n_scenes, self._scene_rows(simulator)
+        lens_params = [{k: v.reshape(S, K) for k, v in p.items()} for p in params["lens_mass"]]
+        x, y = self.pos_x[:, None, :], self.pos_y[:, None, :]  # (S, 1, n)
+        beta_x, beta_y = simulator.beta(x, y, lens_params)  # (S, K, n)
+        det_abs = _clamped_det(simulator, x, y, lens_params)
+        w = self.pos_mask[:, None, None, :]  # (S, 1, 1, n)
+        n_img = torch.sum(self.pos_mask, dim=-1)[:, None]  # (S, 1)
+        beta = torch.stack([beta_x, beta_y], dim=-2)  # (S, K, 2, n)
+        bary = torch.sum(beta * w, dim=-1, keepdim=True) / n_img[..., None, None]
+        err = torch.stack([self.pos_ex[:, None, :] * det_abs,
+                           self.pos_ey[:, None, :] * det_abs], dim=-2)
+        chi2 = torch.sum(((beta - bary) / err) ** 2 * w, dim=(-2, -1))  # (S, K)
+        norm = torch.sum(torch.log(2 * math.pi * err**2) * w, dim=(-2, -1))
+        log_like = -0.5 * (chi2 + norm)
+        return log_like.reshape(S * K), (chi2 / (2.0 * n_img)).reshape(S * K)
+
+
 class BackwardProbModel(VersionedAttrs, _SamplerFacade):
     """Likelihood with observed-image noise and lstsq linear amplitudes
     (pixels only: its position likelihood raises, as in JAX)."""
@@ -432,3 +568,42 @@ class BackwardProbModel(VersionedAttrs, _SamplerFacade):
 
     def log_like(self, simulator, z):
         return self.stats_pixels(simulator, self.prior.constrain(z))[0]
+
+
+class SurveyBackwardProbModel(BackwardProbModel):
+    """Scene-batched lstsq likelihood, the survey twin of
+    :class:`BackwardProbModel`: ``observed_images`` is (S, H, W), batches
+    are scene-major (``bs = S * K``), and each row's linear amplitudes are
+    solved against its own scene's data (``LensSimulator.lstsq_simulate``
+    with (S, H, W) data). ``background_rms`` / ``exp_time`` are scalars or
+    (S,) arrays."""
+
+    def __init__(self, prior: Prior, observed_images, background_rms, exp_time, device=None):
+        obs = np.asarray(observed_images, np.float32)
+        if obs.ndim != 3:
+            raise ValueError(f"observed_images must be (S, H, W); got {obs.shape}")
+        self.prior = prior
+        self.device = resolve_device(device)
+
+        def f32(v):
+            return torch.as_tensor(np.asarray(v, np.float32), device=self.device)
+
+        obs = f32(obs)
+        bkg = f32(background_rms).reshape(-1, 1, 1)
+        exp_t = f32(exp_time).reshape(-1, 1, 1)
+        self.n_scenes = int(obs.shape[0])
+        self.observed_image = obs
+        self.err_map = torch.sqrt(bkg**2 + torch.clamp(obs, min=0.0) / exp_t)
+        self._log_norm = -0.5 * torch.sum(torch.log(2 * math.pi * self.err_map**2),
+                                          dim=(-2, -1))  # (S,)
+
+    def stats_pixels(self, simulator, params):
+        """(log_like, reduced_chi2), each (S * K,), with each row's linear
+        amplitudes solved against its own scene."""
+        S = self.n_scenes
+        im = simulator.lstsq_simulate(params, self.observed_image, self.err_map)
+        im = im.reshape(S, -1, *self.observed_image.shape[-2:])
+        resid = (im - self.observed_image[:, None]) / self.err_map[:, None]
+        chi2_pix = resid**2
+        log_like = -0.5 * torch.sum(chi2_pix, dim=(-2, -1)) + self._log_norm[:, None]
+        return log_like.reshape(-1), torch.mean(chi2_pix, dim=(-2, -1)).reshape(-1)

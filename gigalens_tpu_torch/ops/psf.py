@@ -15,15 +15,21 @@ convolves a (..., H, W) batch with a fixed kernel in one of two modes:
   package's ``_dft_conv`` einsum chain on the half-spectrum factors.
 * ``"fft"``: zero-padded linear convolution by ``torch.fft.rfft2`` /
   ``irfft2`` with the kernel spectrum precomputed (the HMC/SMC "exact" path).
+* ``"direct"``: ``F.conv2d`` with the flipped kernel, the JAX package's
+  ``lax.conv`` mode for tiny kernels (no pool, no stack; the JAX package
+  runs it outside any Pallas kernel too).
 
-Not ported yet: the ``"direct"`` mode and per-scene kernel stacks (survey
-mode). The JAX package's ``MAX_FFT_BATCH`` chunking works around a TPU
-FFT fault and has no counterpart here.
+A stacked (S, kh, kw) kernel convolves survey batches scene by scene
+(fft and dft modes): the sample axis holds S * K scene-major rows, and
+each scene's K rows meet that scene's kernel. The JAX package's
+``MAX_FFT_BATCH`` chunking works around a TPU FFT fault and has no
+counterpart here.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from gigalens_tpu_torch.ops.cuda.dft_conv import DFTConv
 from gigalens_tpu_torch.ops.cuda.direct_conv import DirectConv, k4_route
@@ -190,25 +196,37 @@ def dft_factors(kernel: np.ndarray, img_shape, pool: int = 1, half: bool = False
 class PSFConv:
     """Batched 2-D convolution of (bs, H, W) images with a fixed kernel.
 
-    Both modes give 'SAME'-size output with true convolution orientation
+    Every mode gives 'SAME'-size output with true convolution orientation
     (kernel flipped), matching the reference's ``lax.conv``; ``pool`` > 1
     (dft mode only) folds the trailing average pool into the inverse
     transform, so the conv emits (H/pool, W/pool) directly. Constants live
     on ``device``, which the caller names (no default).
+
+    A stacked (S, kh, kw) ``kernel`` sets ``n_scenes`` = S: :meth:`__call__`
+    then reads one batch axis as S * K scene-major rows (all of scene 0's
+    samples, then scene 1's, ...) and convolves each scene's rows with its
+    own kernel. fft applies an (S, 1, fh, fw // 2 + 1) spectrum in one
+    ``torch.fft`` call; dft builds one K4 per scene (every scene's kernel
+    has the same shape, so ``route`` is the same for all) and launches it
+    on that scene's contiguous rows, as the JAX package sends per-scene
+    spectra down its plain path and never down its one-spectrum Pallas
+    kernel.
     """
 
     def __init__(self, kernel: np.ndarray, img_shape, mode: str = "fft",
                  pool: int = 1, *, device):
         self.kernel = np.asarray(kernel, np.float32)
-        if self.kernel.ndim != 2:
+        if self.kernel.ndim not in (2, 3):
+            raise ValueError(f"kernel must be (kh, kw) or (S, kh, kw); got {self.kernel.shape}")
+        self.n_scenes = self.kernel.shape[0] if self.kernel.ndim == 3 else None
+        if mode not in ("dft", "fft", "direct"):
             raise NotImplementedError(
-                "per-scene PSF stacks (survey mode) are not ported yet (ROADMAP M17)"
-            )
-        if mode not in ("dft", "fft"):
+                f"PSF mode {mode!r} is not ported; use 'dft', 'fft' or 'direct'")
+        if mode == "direct" and self.n_scenes is not None:
             raise NotImplementedError(
-                f"PSF mode {mode!r} is not ported; use 'dft' or 'fft'"
-            )
-        self.kh, self.kw = self.kernel.shape
+                "per-scene PSF kernels support mode='fft' or 'dft'; "
+                "use one of those for survey batches")
+        self.kh, self.kw = self.kernel.shape[-2:]
         self.h, self.w = int(img_shape[0]), int(img_shape[1])
         self.mode = mode
         self.device = torch.device(device)
@@ -217,26 +235,33 @@ class PSFConv:
         fh = _good_fft_size(self.h + self.kh - 1)
         fw = _good_fft_size(self.w + self.kw - 1)
         self.fshape = (fh, fw)
+        self.out_h, self.out_w = self.h // self.pool, self.w // self.pool
+        kernels = self.kernel if self.n_scenes is not None else self.kernel[None]
 
         if mode == "dft":
             p = self.pool
             if p > 1 and (self.h % p or self.w % p):
                 raise ValueError("pool must divide the image shape")
-            self.out_h, self.out_w = self.h // p, self.w // p
             # the CPU runs the chain's einsum twin: parity with the JAX package
             self.route = "chain"
             if self.device.type == "cuda":
                 self.route = k4_route(self.kh, self.kw, p, self.h, self.w)
-            self._dft = self._direct = None
             if self.route == "direct":
-                self._direct = DirectConv(self.kernel, (self.h, self.w), p, self.device)
+                self._scene_convs = [DirectConv(k, (self.h, self.w), p, self.device)
+                                     for k in kernels]
             else:
-                self._dft = DFTConv(*dft_factors(self.kernel, (self.h, self.w), p, half=True),
-                                    device=self.device)
-        else:
-            kpad = np.zeros((fh, fw), np.float64)
-            kpad[: self.kh, : self.kw] = self.kernel
+                self._scene_convs = [
+                    DFTConv(*dft_factors(k, (self.h, self.w), p, half=True), device=self.device)
+                    for k in kernels]
+            # the single kernel's conv (scene 0's for a stack)
+            self._direct = self._scene_convs[0] if self.route == "direct" else None
+            self._dft = self._scene_convs[0] if self.route == "chain" else None
+        elif mode == "fft":
+            kpad = np.zeros((len(kernels), fh, fw), np.float64)
+            kpad[:, : self.kh, : self.kw] = kernels
             kfft = np.fft.rfft2(kpad)
+            # (fh, fw') for one kernel, (S, 1, fh, fw') against (S, K, H, W)
+            kfft = kfft[0] if self.n_scenes is None else kfft[:, None]
             # complex64 spectrum for float32 inputs (the JAX package's), the
             # unrounded complex128 one for float64 inputs
             self._kfft = {
@@ -246,22 +271,49 @@ class PSFConv:
             # 'SAME' crop offsets matching the flipped-kernel convolution
             self._oy = self.kh // 2
             self._ox = self.kw // 2
-            self.out_h, self.out_w = self.h, self.w
+        else:
+            # OIHW weight, flipped: conv2d correlates
+            self._k = torch.as_tensor(np.ascontiguousarray(self.kernel[::-1, ::-1]),
+                                      device=self.device)[None, None]
 
     def _fft_conv(self, x):
         xf = torch.fft.rfft2(x, s=self.fshape)
         out = torch.fft.irfft2(xf * self._kfft[x.dtype], s=self.fshape)
         return out[..., self._oy : self._oy + self.h, self._ox : self._ox + self.w]
 
-    def __call__(self, img):
-        """img: (..., H, W) -> convolved (..., out_h, out_w)."""
-        batch_shape = img.shape[:-2]
-        x = img.reshape(-1, self.h, self.w)
+    def _check_scene_batch(self, n):
+        if n % self.n_scenes:
+            raise ValueError(
+                f"per-scene PSF: batch {n} is not a multiple of "
+                f"n_scenes={self.n_scenes} (samples must be scene-major)")
+        return n // self.n_scenes
+
+    def __call__(self, img, scene_axis: int = 0):
+        """img: (..., H, W) -> convolved (..., out_h, out_w).
+
+        With a per-scene kernel, batch axis ``scene_axis`` of ``img`` holds
+        the S * K scene-major samples; the other batch axes ride along (the
+        simulator's lstsq components, (depth, S * K, H, W), pass -3)."""
+        if self.n_scenes is None:
+            x = img.reshape(-1, self.h, self.w)
+            if self.mode == "fft":
+                out = self._fft_conv(x)
+            elif self.mode == "direct":
+                out = F.conv2d(x[:, None], self._k.to(x.dtype), padding="same")[:, 0]
+            else:
+                out = self._scene_convs[0](x)
+            return out.reshape(*img.shape[:-2], self.out_h, self.out_w)
+
+        x = img.movedim(scene_axis, 0)
+        lead = x.shape[:-2]
+        self._check_scene_batch(lead[0])
+        # (S, K * other batch axes, H, W): a view when the scene axis leads
+        x = x.reshape(self.n_scenes, -1, self.h, self.w)
         if self.mode == "fft":
             out = self._fft_conv(x)
         else:
-            out = self._direct(x) if self.route == "direct" else self._dft(x)
-        return out.reshape(*batch_shape, self.out_h, self.out_w)
+            out = torch.cat([conv(x[s]) for s, conv in enumerate(self._scene_convs)])
+        return out.reshape(*lead, self.out_h, self.out_w).movedim(0, scene_axis)
 
 
 def average_pool(img, factor: int):

@@ -14,8 +14,12 @@ the [EPL|SIE, Shear] + SersicEllipse family runs K1-K3
 (``ops/cuda/fused_render.py``), every other composition the builder covers
 (shapelets, SIS, CoreSersic, NFW halos, baked constants, lstsq component
 stacks) runs K5-K7 (``ops/cuda/fused_builder.py``). A multi-plane model
-takes neither tier and renders unfused. Not ported yet: scene-batched
-(survey) PSF stacks and lstsq data (ROADMAP M17).
+takes neither tier and renders unfused.
+
+Survey mode: a (S, kh, kw) PSF stack in the config convolves the batch as
+S * K scene-major rows, each scene's rows with its own kernel (including
+each lstsq component of a row), and ``lstsq_simulate`` solves each row
+against its own scene's (S, H, W) data.
 
 The lensing fields (:meth:`LensSimulator.beta`, ``hessian``, ``potential``,
 ``fermat_potential``, ``magnification``, ``convergence``, ``shear``) take
@@ -113,21 +117,24 @@ class LensSimulator(gmodel.VersionedAttrs):
         # ---- PSF ----------------------------------------------------------
         self._conv = None
         if sim_config.kernel is not None:
-            if np.ndim(sim_config.kernel) != 2:
-                raise NotImplementedError(
-                    "per-scene PSF stacks (survey mode) are not ported yet (ROADMAP M17)"
-                )
-            kern = subgrid_kernel(np.asarray(sim_config.kernel), ss, odd=True)
+            kernel = np.asarray(sim_config.kernel)
+            if kernel.ndim == 3:
+                # per-scene PSF stack (survey mode): each scene's kernel
+                # supersampled on its own
+                kern = np.stack([subgrid_kernel(k, ss, odd=True) for k in kernel])
+            else:
+                kern = subgrid_kernel(kernel, ss, odd=True)
             mode = sim_config.psf_mode
             if mode is None and sim_config.use_fft is not None:
-                if not sim_config.use_fft:
-                    raise NotImplementedError("direct PSF convolution is not ported yet")
-                mode = "fft"
+                mode = "fft" if sim_config.use_fft else "direct"
+            if mode == "direct" and kern.ndim == 3:
+                mode = "fft"  # per-scene kernels have no direct path, as in JAX
             if mode is None:
-                # the dense-DFT matmul path on the card, the FFT elsewhere
-                # (the JAX package's 'direct' pick for tiny kernels is not
-                # ported; the FFT computes the same convolution)
-                mode = "dft" if self.device.type == "cuda" else "fft"
+                if kern.ndim == 2 and kern.shape[0] * kern.shape[1] <= 81:
+                    mode = "direct"  # tiny kernels: a plain conv, as in JAX
+                else:
+                    # the dense-DFT matmul path on the card, the FFT elsewhere
+                    mode = "dft" if self.device.type == "cuda" else "fft"
             # dft folds the supersample average pool into the inverse transform
             self._conv = PSFConv(
                 kern, (self.h_ss, self.w_ss), mode=mode,
@@ -374,7 +381,10 @@ class LensSimulator(gmodel.VersionedAttrs):
         img = torch.nan_to_num(img)
         pooled = False
         if self._conv is not None:
-            img = self._conv(img)
+            # the sample axis is the one before the image axes, also for
+            # lstsq components (depth, bs, h, w): a per-scene PSF meets each
+            # component of a row with the row's own scene's kernel (F-ref-6)
+            img = self._conv(img, scene_axis=-3)
             pooled = self._conv.pool > 1
         if not pooled:
             img = average_pool(img, self.supersample)
@@ -427,28 +437,35 @@ class LensSimulator(gmodel.VersionedAttrs):
         Solves, per sample, ``argmin_a || (sum_k a_k X_k - Y) / err ||^2``
         through the normal equations with a pseudo-inverse (relative cutoff
         1e-6, as the JAX package's ``pinv(rcond=1e-6)``). ``observed_image``
-        and ``err_map`` are (H, W); scene-batched (S, H, W) data (survey
-        mode) is not ported yet.
+        and ``err_map`` are (H, W), or (S, H, W) in survey mode, where each
+        scene-major row (``bs = S * K``) is solved against its own scene's
+        data.
         """
         observed_image = torch.as_tensor(observed_image, dtype=torch.float32,
                                          device=self.device)
         err_map = torch.as_tensor(err_map, dtype=torch.float32, device=self.device)
-        if observed_image.ndim == 3:
-            raise NotImplementedError(
-                "scene-batched (survey) lstsq data is not ported yet (ROADMAP M17)")
         stacked = self._flat_light(params, no_deflection=no_deflection,
                                    stack_components=True)  # (depth, bs, npix)
         imgs = self._postprocess(self._place(stacked))  # (depth, bs, H, W)
         ret = imgs.permute(1, 2, 3, 0)  # (bs, H, W, depth)
         if return_stacked:
             return ret
-        W = (1.0 / err_map)[..., None]  # (H, W, 1)
-        Y = (observed_image * W[..., 0]).reshape(1, -1, 1)
-        X = (ret * W).reshape(self.bs, -1, self.depth)
+        if observed_image.ndim == 3:  # scene-batched data
+            S = observed_image.shape[0]
+            if self.bs % S:
+                raise ValueError(f"batch {self.bs} is not a multiple of {S} scenes")
+            K = self.bs // S
+            Wm = (1.0 / err_map)[:, None, ..., None]  # (S, 1, H, W, 1)
+            Y = (observed_image / err_map).reshape(S, 1, -1, 1)
+            X = (ret.reshape(S, K, *ret.shape[1:]) * Wm).reshape(S, K, -1, self.depth)
+        else:
+            W = (1.0 / err_map)[..., None]  # (H, W, 1)
+            Y = (observed_image * W[..., 0]).reshape(1, -1, 1)
+            X = (ret * W).reshape(self.bs, -1, self.depth)
         Xt = X.transpose(-1, -2)
         coeffs = (torch.linalg.pinv(Xt @ X, rtol=1e-6) @ (Xt @ Y))[..., 0]
+        coeffs = coeffs.reshape(self.bs, self.depth)
         if return_coeffs:
             return coeffs
         out = torch.sum(ret * coeffs[:, None, None, :], dim=-1)
         return torch.squeeze(out)
-

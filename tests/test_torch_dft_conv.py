@@ -119,10 +119,12 @@ def test_fft_mode_and_average_pool_match_jax(setup):
 
 
 def test_unported_modes_raise(setup):
+    """JAX's "dft_hi" (a TPU precision switch) is not a port mode, and a
+    per-scene stack has no direct mode, as in JAX."""
     with pytest.raises(NotImplementedError):
-        PSFConv(setup["kern"], (40, 40), mode="direct", device="cpu")
+        PSFConv(setup["kern"], (40, 40), mode="dft_hi", device="cpu")
     with pytest.raises(NotImplementedError):
-        PSFConv(np.stack([setup["kern"]] * 2), (40, 40), mode="fft", device="cpu")
+        PSFConv(np.stack([setup["kern"]] * 2), (40, 40), mode="direct", device="cpu")
 
 
 # (image shape, kernel shape, pool): fw = 45 (odd) for 36-px rows with a 9-px

@@ -210,10 +210,6 @@ def test_port_never_imports_jax():
 
 def test_unported_inputs_raise(scene):
     """Inputs this slice does not port are refused, not silently mis-handled."""
-    lstsq = PhysicalModel([EPL(18), Shear()], [], [SersicEllipse(use_lstsq=True)])
-    sim = LensSimulator(lstsq, scene["tcfg"], bs=1, device="cpu")  # single-scene lstsq is ported
-    with pytest.raises(NotImplementedError, match="M17"):
-        sim.lstsq_simulate({}, np.zeros((2, 20, 20)), np.ones((2, 20, 20)))
     # multi-plane models and position data are ported (M14): what the JAX
     # package refuses, the port refuses with the same errors
     with pytest.raises(ValueError, match="z_source"):
@@ -233,6 +229,10 @@ def test_unported_inputs_raise(scene):
                             centroids_errors_y=[[0.1]], background_rms=0.2, exp_time=100.0,
                             device="cpu")
     assert prob.include_pixels and prob.include_positions and prob.n_position == 2
-    with pytest.raises(NotImplementedError, match="direct"):
-        LensSimulator(scene["tphys"], dataclasses.replace(scene["tcfg"], use_fft=False), bs=1,
-                      device="cpu")
+    # use_fft=False is JAX's direct PSF mode (ported with survey mode, M17a)
+    sim = LensSimulator(scene["tphys"], dataclasses.replace(scene["tcfg"], use_fft=False), bs=1,
+                        device="cpu")
+    assert sim._conv.mode == "direct"
+    seq = ModellingSequence(scene["tphys"], scene["tprob"], scene["tcfg"], device="cpu")
+    with pytest.raises(NotImplementedError, match="M19"):
+        seq.fit(checkpoint_dir="unused")

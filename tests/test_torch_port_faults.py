@@ -11,6 +11,7 @@ import torch
 from gigalens_tpu.model import BackwardProbModel as JBackwardProbModel
 from gigalens_tpu.model import ForwardProbModel as JForwardProbModel
 from gigalens_tpu_torch import PhysicalModel
+from gigalens_tpu_torch.bench import bench_prior
 from gigalens_tpu_torch.config import SimulatorConfig
 from gigalens_tpu_torch.interop import prior_from_reference
 from gigalens_tpu_torch.model import BackwardProbModel, ForwardProbModel
@@ -86,14 +87,18 @@ def test_mvn_device_follows_the_entry_point_rule(make):
 
 
 def test_psf_stack_names_the_survey_module():
-    """A (3, 5, 5) per-scene PSF stack raises the survey message in the
-    simulator, before the subgrid resampling sees a 3-D array."""
+    """A (3, 5, 5) per-scene PSF stack builds (each kernel supersampled on
+    its own, no broadcast error in the subgrid resampling) and refuses a
+    batch that is not a multiple of its 3 scenes."""
     phys = PhysicalModel([EPL(18), Shear()], [SersicEllipse()], [SersicEllipse()])
     g = np.exp(-((np.arange(5) - 2) ** 2 + (np.arange(5)[:, None] - 2) ** 2) / 2.0)
     stack = np.stack([g / g.sum()] * 3).astype(np.float32)
     cfg = SimulatorConfig(delta_pix=0.1, num_pix=20, supersample=2, kernel=stack)
-    with pytest.raises(NotImplementedError, match="M17"):
-        LensSimulator(phys, cfg, bs=1, device="cpu")
+    sim = LensSimulator(phys, cfg, bs=3, device="cpu")
+    assert sim._conv.n_scenes == 3 and sim._conv.kernel.shape == (3, 11, 11)
+    params = bench_prior().sample(torch.Generator().manual_seed(0), 4)
+    with pytest.raises(ValueError, match="multiple of n_scenes=3"):
+        LensSimulator(phys, cfg, bs=4, device="cpu").simulate(params)
 
 
 @pytest.mark.parametrize("family", ["bench_pattern", "builder"])
