@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernels   # steps 1-4 only, a development aid: its
                                       # kernels line says "partial": true, has no
                                       # launch counts, and no ok line follows
+    python3 chip_smoke.py --inversion # steps 1, 2 and 12 only, the same kind of aid
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the hand-written kernels from gigalens_tpu_torch/csrc/ with nvcc
@@ -105,7 +106,24 @@
    50 each way) whose components are held against four single-scene
    simulators, and K2/K3 at the MAP shape and the direct K4 at one scene's
    launch against their twins.
-12. Ends with the card line, a JSON line of per-kernel results and the ok
+12. Runs pixelated-source inversion (gigalens_tpu_torch.inversion) on
+   scripts/bench_inversion.py's scene: 64 px at 0.05", supersample 2, the
+   9x9 Gaussian PSF (19x19 supersampled: the direct K4), SIE + Shear, a 24 x
+   24 source grid (576 basis images a sample), lam sampled, the data of
+   examples/demo_inversion.py's truth rendered by the port. log_prob forward
+   and forward + gradient at bs 1, 8 and 32 timed with the port's
+   utils.profiling.timed, the direct K4 launches a call counted exactly (a
+   chunk of source rows a launch each way; the checkpointed chunks'
+   recompute stops before the conv), peak memory and one
+   torch.profiler pass at bs 32 split into K4 forward / transpose, the Gram
+   (cuBLAS), the Cholesky and solves and the rest; log_marginal at bs 8
+   against the same evaluation in float64 on the card (K4's plain version);
+   the direct K4 both ways at one chunk's launch (1,536 images at bs 32);
+   then the demo's joint MAP: stage 1 parametric (32 x 400, K2/K3 and the
+   direct K4), stage 2 pixelated (32 x 200, the direct K4 counted exactly)
+   through PipelineCheckpointer.run_map and reloaded from its file (no
+   launches, the same best log_prob), gated on best red-chi2 <= CHI2_GATE.
+13. Ends with the card line, a JSON line of per-kernel results and the ok
    line.
 
 Every phase raises on failure (nothing is caught), so any failure exits
@@ -1254,8 +1272,35 @@ def device_rows(prof):
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
+    # a record_function range also shows on the device as an annotation
+    # spanning its kernels: not a kernel, never counted
     return sorted(((dev_us(e), e.count, e.key) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0), reverse=True)
+                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0
+                   and not getattr(e, "is_user_annotation", False)), reverse=True)
+
+
+def kernel_us_by_range(prof, names):
+    """Device us of the kernels inside each named record_function range of
+    a torch.profiler window ({name: us}, and "" for the kernels outside
+    them): each kernel goes to the range whose device-side annotation span
+    contains it."""
+    import bisect
+
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                   if getattr(e, "is_user_annotation", False) and e.name in names)
+    starts = [sp[0] for sp in spans]
+    out = dict.fromkeys(list(names) + [""], 0.0)
+    for e in events:
+        if getattr(e, "is_user_annotation", False):
+            continue
+        t0, t1 = e.time_range.start, e.time_range.end
+        i = bisect.bisect_right(starts, t0) - 1
+        inside = i >= 0 and t1 <= spans[i][1]
+        out[spans[i][2] if inside else ""] += t1 - t0
+    return out
 
 
 def smc_phase(pipe, rec):
@@ -2083,6 +2128,350 @@ def survey_phase():
     return kernels, counts
 
 
+# the inversion phase (scripts/bench_inversion.py's scene, the data and
+# joint MAP of examples/demo_inversion.py): 64 px at 0.05", supersample 2,
+# the 9x9 Gaussian PSF, a 24 x 24 source grid of extent 0.4"
+INV_PIX, INV_DELTA, INV_NSIDE, INV_EXTENT = 64, 0.05, 24, 0.4
+INV_BKG, INV_EXP_TIME = 0.1, 1e3
+INV_BS, INV_REPEATS = (1, 8, 32), 5
+# the joint MAP: starts, stage 1 (parametric) and stage 2 (pixelated) steps
+INV_STARTS, INV_STAGE1_STEPS, INV_STAGE2_STEPS = 32, 400, 200
+# log_marginal against its float64 twin: the bounds of JAX's float64
+# oracle test (tests/test_inversion.py)
+INV_LM_RTOL, INV_LM_ATOL = 2e-4, 0.2
+INV_TRUTH = dict(
+    lens_mass=[dict(theta_E=0.85, e1=0.07, e2=-0.04, center_x=0.01, center_y=-0.02),
+               dict(gamma1=0.02, gamma2=-0.01)],
+    source_light=[dict(R_sersic=0.15, n_sersic=1.2, e1=0.15, e2=-0.05, center_x=0.06,
+                       center_y=-0.04, Ie=10.0)])
+
+
+def inversion_scene(dev):
+    """The inversion scene on ``dev`` (a dict): the config, the lens prior
+    groups, the pixelated prior, the observation as numpy, [SIE, Shear]
+    with no source (``phys``) and with a SersicEllipse (``phys_param``). The
+    truth (examples/demo_inversion.py:60-85: SIE + Shear, a Sersic source)
+    is rendered by the port and observed with bkg 0.1 / exp_time 1e3 noise
+    from a seeded generator; the pixelated prior is the demo's lens groups
+    with lam ~ LogNormal(1, 1) (scripts/bench_inversion.py)."""
+    import numpy as np
+    import torch
+
+    from gigalens_tpu_torch import PhysicalModel, SimulatorConfig
+    from gigalens_tpu_torch.prob import Prior
+    from gigalens_tpu_torch.prob import distributions as d
+    from gigalens_tpu_torch.profiles.light import SersicEllipse
+    from gigalens_tpu_torch.profiles.mass import SIE, Shear
+    from gigalens_tpu_torch.simulator import LensSimulator
+
+    k = np.exp(-((np.arange(9) - 4) ** 2 + (np.arange(9)[:, None] - 4) ** 2) / 4.0)
+    cfg = SimulatorConfig(delta_pix=INV_DELTA, num_pix=INV_PIX, supersample=2,
+                          kernel=(k / k.sum()).astype(np.float32))
+    lens_groups = [
+        dict(theta_E=d.LogNormal(math.log(0.8), 0.15), e1=d.Normal(0, 0.1),
+             e2=d.Normal(0, 0.1), center_x=d.Normal(0, 0.05), center_y=d.Normal(0, 0.05)),
+        dict(gamma1=d.Normal(0, 0.05), gamma2=d.Normal(0, 0.05))]
+    prior = Prior(dict(lens_mass=lens_groups,
+                       source_pixelated=[dict(lam=d.LogNormal(1.0, 1.0))]))
+    truth = {g: [{k: torch.tensor([v], device=dev) for k, v in p.items()} for p in ps]
+             for g, ps in INV_TRUTH.items()}
+    sim = LensSimulator(PhysicalModel([SIE(), Shear()], [], [SersicEllipse()]), cfg, bs=1,
+                        device=dev)
+    with torch.no_grad():
+        img = sim.simulate(truth)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    noise = torch.randn(img.shape, generator=gen, device=dev)
+    obs = img + noise * torch.sqrt(INV_BKG**2 + torch.clamp(img, min=0.0) / INV_EXP_TIME)
+    if obs.shape != (INV_PIX, INV_PIX) or not torch.isfinite(obs).all():
+        raise AssertionError(f"bad inversion observation: shape {tuple(obs.shape)}")
+    return dict(cfg=cfg, lens_groups=lens_groups, prior=prior, obs=obs.cpu().numpy(),
+                phys=PhysicalModel([SIE(), Shear()], [], []),
+                phys_param=PhysicalModel([SIE(), Shear()], [], [SersicEllipse()]))
+
+
+def plain64(model, sim):
+    """The same evaluation in float64 on the card: copies of ``model`` and
+    ``sim`` whose data, coordinates and mask are float64 and whose PSF conv
+    is K4's plain version (the explicit tap sums) in float64; the Gram,
+    Cholesky and solve then run in float64 through the model's own code."""
+    import copy
+
+    from gigalens_tpu_torch.ops.cuda import direct_conv as dcv
+
+    d = sim._conv._direct
+
+    class Plain:
+        pool = d.pool
+
+        def __call__(self, img, scene_axis=0):
+            x = img.reshape(-1, d.h, d.w).double()
+            out = dcv.direct_conv_reference(x, d.w_ref.double(), d.pool, d.oy, d.ox)
+            return out.reshape(*img.shape[:-2], d.out_h, d.out_w)
+
+    sim64 = copy.copy(sim)
+    sim64._conv = Plain()
+    for k in ("img_x", "img_y", "img_region"):
+        setattr(sim64, k, getattr(sim, k).double())
+    model64 = copy.copy(model)
+    for k in ("observed_image", "error_map", "H_reg"):
+        setattr(model64, k, getattr(model, k).double())
+    return model64, sim64
+
+
+def inversion_phase():
+    """Pixelated-source inversion on the card. Micro: log_prob forward and
+    forward + gradient at bs 1, 8 and 32, timed by the port's
+    utils.profiling.timed, with the chunk size, the direct K4 launches of
+    one call counted exactly (one forward a chunk, and with the gradient
+    one transposed a chunk: the checkpoint's recompute stops before the
+    conv) and peak memory; one torch.profiler pass at bs 32 for the
+    device time by part and the idle share. log_marginal at bs 8 against
+    its float64 twin (plain64); the direct K4 at one chunk's launch of the
+    bs-32 evaluation, both ways, as kernel rows. Then the joint MAP of
+    examples/demo_inversion.py: stage 1 parametric (SersicEllipse source;
+    K2/K3 and the direct K4 once a step each way), stage 2 pixelated from
+    stage 1's best plus jitter (the direct K4 counted exactly) through
+    PipelineCheckpointer.run_map, rerun from its file (no launches, the
+    same best log_prob), gated on the best joint red-chi2 <= CHI2_GATE.
+    Returns (kernel rows, {"inversion": the bs-32 forward + gradient
+    launch counts})."""
+    import tempfile
+
+    import torch
+
+    from gigalens_tpu_torch.inference import ModellingSequence, optim
+    from gigalens_tpu_torch.inference.map import fit_map
+    from gigalens_tpu_torch.inversion import PixelatedSourceProbModel, SourceGrid
+    from gigalens_tpu_torch.model import ForwardProbModel
+    from gigalens_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from gigalens_tpu_torch.prob import Prior
+    from gigalens_tpu_torch.prob import distributions as d
+    from gigalens_tpu_torch.simulator import LensSimulator
+    from gigalens_tpu_torch.utils import PipelineCheckpointer, timed, trace
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    sc = inversion_scene(dev)
+    cfg, prior, phys, obs = sc["cfg"], sc["prior"], sc["phys"], sc["obs"]
+    model = PixelatedSourceProbModel(prior, obs, background_rms=INV_BKG, exp_time=INV_EXP_TIME,
+                                     grid=SourceGrid(INV_NSIDE, INV_EXTENT), lam=None,
+                                     device=dev)
+    gen = torch.Generator(device=dev).manual_seed(21)
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        return launch_counts()
+
+    # 1. micro
+    sims, calls, fg32 = {}, {}, None
+    for bs in INV_BS:
+        sim = sims[bs] = LensSimulator(phys, cfg, bs=bs, device=dev)
+        conv = sim._conv
+        if not direct_route(sim):
+            raise AssertionError(f"the inversion simulator must take the direct K4, got route "
+                                 f"{getattr(conv, 'route', None)}")
+        z = prior.unconstrain(prior.sample(gen, bs))
+
+        def fwd(sim=sim, z=z):
+            with torch.no_grad():
+                return model.log_prob(sim, z)[0]
+
+        def fwd_grad(sim=sim, z=z):
+            zz = z.detach().requires_grad_(True)
+            return torch.autograd.grad(model.log_prob(sim, zz)[0].sum(), zz)[0]
+
+        m = model.chunk_rows(sim)
+        chunks = INV_NSIDE // m
+        # the gradient's checkpoint recomputes a chunk only up to the conv's
+        # input: one forward launch a chunk either way
+        for name, fn, exact in (("fwd", fwd, dict(direct_conv_fwd=chunks,
+                                                  direct_conv_transpose=0)),
+                                ("fwd+grad", fwd_grad, dict(direct_conv_fwd=chunks,
+                                                            direct_conv_transpose=chunks))):
+            out = fn()
+            if not torch.isfinite(out).all():
+                raise AssertionError(f"inversion {name} at bs {bs}: non-finite output")
+            counts = counted(fn)
+            check_launches(f"inversion {name} bs {bs}", counts, banned=(
+                "dft_conv_fwd", "dft_conv_transpose", "fused_render_fwd", "fused_render_bwd",
+                "fused_render_fwd_omega"), exact=exact)
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            secs, _ = timed(fn, warmup=1, repeats=INV_REPEATS)
+            calls[(bs, name)] = secs
+            if bs == INV_BS[-1] and name == "fwd+grad":
+                fg32 = (fn, counts, m)
+            print(f"inversion micro bs={bs} {name}: {1e3 * secs:.3f} ms a call, "
+                  f"{1e3 * secs / bs:.3f} ms a sample (timed, {INV_REPEATS} calls after 1); "
+                  f"chunk {m} source rows = {m * INV_NSIDE} basis images, {chunks} chunks, "
+                  f"{m * INV_NSIDE * bs} images a K4 launch; K4 launches a call "
+                  f"{counts['direct_conv_fwd']} forward, {counts['direct_conv_transpose']} "
+                  f"transposed; peak device memory {peak / 2**30:.3f} GiB", flush=True)
+
+    # one profiled pass of forward + gradient at bs 32
+    fn, counts32, m32 = fg32
+    reps = 3
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp) as prof:
+            for _ in range(reps):
+                fn()
+        trace_mb = Path(tmp, "trace.json").stat().st_size / 2**20
+    groups = {"K4 forward": ("direct_conv_fwd",), "K4 transpose": ("direct_conv_transpose",),
+              "Gram + backward (cuBLAS)": ("inversion.gram", "inversion.gram_backward"),
+              "Cholesky, solve + backward": ("inversion.cholesky",
+                                             "inversion.cholesky_backward"),
+              "everything else": ("",)}
+    by_range = kernel_us_by_range(prof, [r for g in groups.values() for r in g if r])
+    split = {k: sum(by_range[r] for r in rs) / 1e3 / reps for k, rs in groups.items()}
+    busy = sum(split.values())
+    rows_busy = sum(r[0] for r in device_rows(prof)) / 1e3 / reps
+    wall = 1e3 * calls[(INV_BS[-1], "fwd+grad")]
+    print(f"inversion profile (bs={INV_BS[-1]} forward + gradient, {reps} calls; Chrome trace "
+          f"{trace_mb:.1f} MiB): device busy {busy:.3f} ms a call (all kernels {rows_busy:.3f}) "
+          f"of {wall:.3f} ms unprofiled = idle {100 * (1 - busy / wall):.1f}%; kernel ms a call "
+          f"by range: " + ", ".join(f"{k} {v:.3f}" for k, v in split.items()), flush=True)
+    for us, count, key in device_rows(prof)[:8]:
+        print(f"  {us / 1e3 / reps:8.3f}  {count / reps:6.1f}  {key[:100]}", flush=True)
+    if busy <= 0 or min(split["K4 forward"], split["K4 transpose"]) <= 0:
+        raise AssertionError("torch.profiler saw no device time in the inversion K4 ranges")
+
+    # 2. log_marginal at bs 8 against its float64 twin
+    sim8 = sims[8]
+    z8 = prior.unconstrain(prior.sample(gen, 8))
+    with torch.no_grad():
+        x = prior.constrain(z8)
+        got = model.solve(sim8, x)["log_marginal"]
+        model64, sim64 = plain64(model, sim8)
+        x64 = {g: [{k: v.double() for k, v in p.items()} for p in ps] for g, ps in x.items()}
+        want = model64.solve(sim64, x64)["log_marginal"]
+    err = check_close("inversion log_marginal vs float64 twin (bs 8)", got, want, INV_LM_RTOL,
+                      INV_LM_ATOL)
+    print(f"inversion log_marginal (bs 8) vs float64 twin: max |err| {err:.4e} nats of "
+          f"|log_marginal| up to {float(want.abs().max()):.2f} (rtol {INV_LM_RTOL}, atol "
+          f"{INV_LM_ATOL})", flush=True)
+
+    # the direct K4 at one chunk's launch of the bs-32 evaluation: the
+    # chunk's placed basis images and a random cotangent
+    sim32 = sims[INV_BS[-1]]
+    conv = sim32._conv
+    with torch.no_grad():
+        bx, by = sim32.beta(sim32.img_x, sim32.img_y, prior.constrain(
+            prior.unconstrain(prior.sample(gen, INV_BS[-1])))["lens_mass"])
+        cx = torch.as_tensor(model.grid.centers_x, device=dev)
+        cy = torch.as_tensor(model.grid.centers_y, device=dev)
+        inv_d = 1.0 / model.grid.delta
+        wx = torch.clamp(1.0 - torch.abs(bx[..., None] - cx) * inv_d, min=0.0)
+        wy = torch.clamp(1.0 - torch.abs(by[..., None] - cy) * inv_d, min=0.0)
+        A = (wy[..., :m32, None] * wx[..., None, :]).reshape(INV_BS[-1], -1, m32 * INV_NSIDE)
+        xin = A.movedim(-1, 0).reshape(-1, conv.h, conv.w).contiguous()
+    ctc = torch.randn((xin.shape[0], conv.out_h, conv.out_w), generator=gen, device=dev)
+    where = f"inversion bs={INV_BS[-1]} {tuple(xin.shape)}"
+    rows, _ = direct_checks(conv, xin, ctc, where)
+    kernels = [dict(r, phase="inversion") for r in rows]
+    del A, xin, ctc
+
+    # 3. the joint MAP of examples/demo_inversion.py
+    prior1 = Prior(dict(lens_mass=sc["lens_groups"], source_light=[dict(
+        R_sersic=d.LogNormal(math.log(0.15), 0.3), n_sersic=d.Uniform(0.5, 4),
+        e1=d.TruncatedNormal(0, 0.15, -0.5, 0.5), e2=d.TruncatedNormal(0, 0.15, -0.5, 0.5),
+        center_x=d.Normal(0, 0.15), center_y=d.Normal(0, 0.15),
+        Ie=d.LogNormal(math.log(10.0), 0.5))]))
+    seq1 = ModellingSequence(sc["phys_param"], ForwardProbModel(prior1, obs, background_rms=INV_BKG,
+                                                     exp_time=INV_EXP_TIME, device=dev),
+                             cfg, device=dev)
+
+    def demo_opt(lr0, lr1, steps):
+        return optim.chain(optim.scale_by_adam(), optim.scale_by_schedule(
+            optim.polynomial_schedule(-lr0, -lr1, 0.5, steps)))
+
+    n1, n2 = INV_STAGE1_STEPS, INV_STAGE2_STEPS
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    z1 = seq1.MAP(demo_opt(1e-2, 3e-3, n1), n_samples=INV_STARTS, num_steps=n1, seed=0)
+    torch.cuda.synchronize()
+    wall1 = time.perf_counter() - t0
+    counts1 = launch_counts()
+    check_launches("inversion stage 1 MAP", counts1, exact=dict(
+        fused_render_fwd_omega=n1, fused_render_bwd=n1, direct_conv_fwd=n1,
+        direct_conv_transpose=n1))
+    z1_best = seq1.best_map_start(z1)
+    with torch.no_grad():
+        chi1 = float(seq1.prob_model.log_prob(seq1._sim(1), z1_best)[1][0])
+        theta1 = float(prior1.constrain(z1_best)["lens_mass"][0]["theta_E"][0])
+    print(f"inversion stage 1 (parametric Sersic source): {INV_STARTS} starts x {n1} steps in "
+          f"{wall1:.2f} s ({1e3 * wall1 / n1:.3f} ms/step, host clock); best red-chi2 "
+          f"{chi1:.4f}, theta_E {theta1:.4f} (truth 0.85); launches {json.dumps(counts1)}",
+          flush=True)
+
+    # stage 2: every start at stage 1's lens (the lens columns lead both
+    # priors) plus jitter, lam from 3.0 plus jitter
+    d_lens = z1_best.shape[1] - len(prior1.tree["source_light"][0])
+    lam_z0 = float(prior.tree["source_pixelated"][0]["lam"].bijector.inverse(
+        torch.tensor(3.0)))
+    z0 = torch.cat([z1_best[:, :d_lens] + 0.03 * torch.randn(
+        (INV_STARTS, d_lens), generator=gen, device=dev),
+        lam_z0 + 0.3 * torch.randn((INV_STARTS, 1), generator=gen, device=dev)], dim=1)
+    seq2 = ModellingSequence(phys, model, cfg, device=dev)
+    sim2 = seq2._sim(INV_STARTS)
+    if not direct_route(sim2) or model.chunk_rows(sim2) != m32:
+        raise AssertionError("the stage-2 simulator must take the direct K4 at the micro's chunk")
+
+    def never():
+        raise AssertionError("the saved stage-2 MAP ran again")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = PipelineCheckpointer(tmp, device=dev)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        z2, hist2 = ck.run_map(lambda: fit_map(model, sim2, demo_opt(3e-3, 1e-3, n2), start=z0,
+                                               n_samples=INV_STARTS, num_steps=n2))
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+        counts2 = launch_counts()
+        reset_launch_counts()
+        z2b, hist2b = ck.run_map(never)
+        counts_reload = launch_counts()
+    per_call = dict(direct_conv_fwd=counts32["direct_conv_fwd"],
+                    direct_conv_transpose=counts32["direct_conv_transpose"])
+    check_launches("inversion stage 2 MAP", counts2, banned=("fused_render_fwd_omega",),
+                   exact={k: n2 * v for k, v in per_call.items()})
+    if any(counts_reload.values()):
+        raise AssertionError(f"the stage-2 MAP reload launched kernels: {counts_reload}")
+    with torch.no_grad():
+        lp, chi = model.log_prob(sim2, z2)
+        lpb, _ = model.log_prob(sim2, z2b)
+    lp = torch.where(torch.isnan(lp), -torch.inf, lp)
+    lpb = torch.where(torch.isnan(lpb), -torch.inf, lpb)
+    best = int(torch.argmax(lp))
+    if not (torch.equal(z2, z2b) and torch.equal(hist2, hist2b)
+            and float(lpb.max()) == float(lp.max())):
+        raise AssertionError(f"the reloaded stage-2 MAP differs: best log_prob "
+                             f"{float(lp.max())} -> {float(lpb.max())}")
+    chi_best = float(chi[best])
+    x = prior.constrain(z2[best][None])
+    fit = {k: float(v[0]) for k, v in x["lens_mass"][0].items()}
+    lam_fit = float(x["source_pixelated"][0]["lam"][0])
+    print(f"inversion stage 2 (joint pixelated MAP, lens + lam): {INV_STARTS} starts x {n2} "
+          f"steps in {wall2:.2f} s ({1e3 * wall2 / n2:.3f} ms/step, host clock); min red-chi2 "
+          f"step 1 {float(hist2[0]):.4f} -> best {chi_best:.4f}; theta_E {fit['theta_E']:.4f} "
+          f"(truth 0.85), e1 {fit['e1']:+.4f} (0.07), e2 {fit['e2']:+.4f} (-0.04), lam "
+          f"{lam_fit:.3f}; K4 launches {counts2['direct_conv_fwd']} forward, "
+          f"{counts2['direct_conv_transpose']} transposed ({n2} x {per_call}); reloaded "
+          f"through PipelineCheckpointer: no launches, the same z and best log_prob "
+          f"{float(lp.max()):.4f}", flush=True)
+    if not chi_best <= CHI2_GATE:
+        raise AssertionError(f"inversion joint MAP: best red-chi2 {chi_best} > {CHI2_GATE}")
+    print(f"inversion phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return kernels, {"inversion": counts32}
+
+
 def render_rows(params, sim, gen, phase, where):
     """K2 and K3 at ``params``' shape on ``sim``'s grid, each against its
     float64 twin with kernel_checks' tolerances and timed against its
@@ -2178,6 +2567,15 @@ def main(argv=()):
             print(f"  ptxas: {line.strip()}", flush=True)
     _build.load()
 
+    if "--inversion" in argv:
+        # a development aid: the inversion phase alone; no ok line follows
+        kernels, counts = inversion_phase()
+        print(card)
+        print(json.dumps({"partial": True, "kernels": [
+            {k: v for k, v in dict(kern, launches=counts[kern["phase"]][kern["key"]]).items()
+             if k not in ("key", "phase")} for kern in kernels]}))
+        return 0
+
     # kernel_checks' rows belong to the bench MAP phase unless they say otherwise
     kernels = [dict(dict(phase="bench"), **k) for k in kernel_checks()]
     kernels += builder_checks()
@@ -2201,11 +2599,15 @@ def main(argv=()):
     survey_kernels, survey_counts = survey_phase()
     kernels += survey_kernels
     counts.update(survey_counts)
+    inversion_kernels, inversion_counts = inversion_phase()
+    kernels += inversion_kernels
+    counts.update(inversion_counts)
     # launches: each kernel's count in the phase of its row (K1-K4 the bench
     # scene's MAP, K5 and K7 family S's, K6 and K7-components family L's;
     # the rows at the SVI, HMC and SMC shapes the pipeline's SVI, HMC and
     # SMC phases; the cluster rows the cluster MAP's, SMC's and lstsq MAP's;
     # the survey rows the survey MAP's (the direct K4: all S scenes' launches);
+    # the inversion K4 rows one bs-32 forward + gradient evaluation's;
     # the chain K4 at the wide PSF the chain MAP phase's, and at the bench
     # shape, where PSFConv takes the direct route, 0)
     out = [

@@ -32,6 +32,7 @@ class SimulatorConfig:
             "fft" (``torch.fft``), "direct" (``F.conv2d``; a per-scene stack
             takes "fft" instead), or None (auto: direct for a supersampled
             kernel of at most 81 taps, else dft on CUDA and fft elsewhere).
+            "dft_hi" (the JAX package's HIGHEST-precision dft) is "dft".
             Overrides use_fft when set.
         use_fused_render: fused deflect+render kernel for the EPL+Shear /
             SersicEllipse model family: True, False, or None (auto: on when

@@ -6,8 +6,9 @@ the reference: MAP and SVI on the fast path (fused render and, on the card,
 the dft-mode conv, K4), HMC and SMC on the exact path (the FFT conv), the
 Laplace Hessian on the unfused render with the FFT conv. Every phase runs
 on the sequence's device, which is the CUDA card unless the caller names
-another (``device="cpu"``). ``fit(checkpoint_dir=...)`` raises naming its
-ROADMAP item (M19).
+another (``device="cpu"``). ``fit(checkpoint_dir=...)`` saves each phase's
+result and skips the phases already saved on a rerun
+(:class:`~gigalens_tpu_torch.utils.checkpoint.PipelineCheckpointer`).
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from gigalens_tpu_torch.inference.optim import GradientTransformation
 from gigalens_tpu_torch.inference.svi import fit_svi
 from gigalens_tpu_torch.model import resolve_device
 from gigalens_tpu_torch.simulator import LensSimulator
+from gigalens_tpu_torch.utils.checkpoint import PipelineCheckpointer
 from gigalens_tpu_torch.utils.summary import summarize_posterior
 
 
@@ -65,10 +67,6 @@ def svi_optimizer(num_steps: int, lr: float = 3e-3) -> GradientTransformation:
     the first fifth of ``num_steps``."""
     return optim.chain(optim.scale_by_adam(), optim.scale_by_schedule(
         optim.polynomial_schedule(-1e-6, -lr, 2, max(num_steps // 5, 1))))
-
-
-def _not_ported(what, item):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 class ModellingSequence:
@@ -225,11 +223,16 @@ class ModellingSequence:
         Multi-start Adam MAP under a polynomial-decay schedule, SVI started
         from the Laplace covariance at the best MAP point, and ChEES-adapted
         preconditioned HMC started from the surrogate (seed + 2).
-        ``progress(phase, step, value)`` receives per-segment feedback.
-        Returns a dict ``z_map, best, q_z, losses, hmc, summary, times``.
+        ``checkpoint_dir`` makes the run resumable per phase
+        (:class:`~gigalens_tpu_torch.utils.checkpoint.PipelineCheckpointer`):
+        a rerun with the same directory loads the finished phases instead
+        of running them. ``progress(phase, step, value)`` receives
+        per-segment feedback. Returns a dict ``z_map, best, q_z, losses,
+        hmc, summary, times``.
         """
+        ckpt = None
         if checkpoint_dir is not None:
-            _not_ported("fit(checkpoint_dir=...) (PipelineCheckpointer)", "M19")
+            ckpt = PipelineCheckpointer(checkpoint_dir, device=self.device)
 
         def _progress(phase):
             if progress is None:
@@ -240,24 +243,34 @@ class ModellingSequence:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
 
+        def _map():
+            z = self.MAP(map_optimizer(map_steps, map_lr), n_samples=n_samples,
+                         num_steps=map_steps, seed=seed, progress=_progress("map"))
+            return z, None
+
+        def _svi():
+            L0 = self.laplace_scale_tril(best, method=laplace_method)
+            return self.SVI(best, svi_optimizer(vi_steps, svi_lr), n_vi=n_vi, num_steps=vi_steps,
+                            init_scales=L0, seed=seed + 1, progress=_progress("svi"))
+
+        def _hmc():
+            return self.HMC(q_z, n_hmc=n_hmc, num_burnin_steps=num_burnin_steps,
+                            num_results=num_results, seed=seed + 2, progress=_progress("hmc"))
+
         times = {}
         t0 = time.time()
-        z_map = self.MAP(map_optimizer(map_steps, map_lr), n_samples=n_samples, num_steps=map_steps, seed=seed,
-                         progress=_progress("map"))
+        z_map, _ = ckpt.run_map(_map) if ckpt else _map()
         best = self.best_map_start(z_map)
         _sync()
         times["map"] = time.time() - t0
 
         t0 = time.time()
-        L0 = self.laplace_scale_tril(best, method=laplace_method)
-        q_z, losses = self.SVI(best, svi_optimizer(vi_steps, svi_lr), n_vi=n_vi, num_steps=vi_steps, init_scales=L0,
-                               seed=seed + 1, progress=_progress("svi"))
+        q_z, losses = ckpt.run_svi(_svi) if ckpt else _svi()
         _sync()
         times["svi"] = time.time() - t0
 
         t0 = time.time()
-        res = self.HMC(q_z, n_hmc=n_hmc, num_burnin_steps=num_burnin_steps,
-                       num_results=num_results, seed=seed + 2, progress=_progress("hmc"))
+        res = ckpt.run_hmc(_hmc) if ckpt else _hmc()
         _sync()
         times["hmc"] = time.time() - t0
         return dict(z_map=z_map, best=best, q_z=q_z, losses=losses, hmc=res,

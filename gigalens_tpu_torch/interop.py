@@ -162,6 +162,25 @@ def sim_config_from_reference(cfg) -> SimulatorConfig:
     )
 
 
+def pixelated_model_from_reference(model, device=None):
+    """The port's PixelatedSourceProbModel of a JAX one: its prior (a
+    ``source_pixelated`` group included), observed image, error map, grid,
+    fixed ``lam`` and ``chunk``, and its regularizer as it is (``H_reg``
+    and ``logdet_H``, so a ``reg_ridge`` comes with them). ``device=None``
+    means the CUDA card."""
+    from gigalens_tpu_torch.inversion import PixelatedSourceProbModel, SourceGrid
+
+    g = model.grid
+    out = PixelatedSourceProbModel(
+        prior_from_reference(model.prior), np.asarray(model.observed_image),
+        error_map=np.asarray(model.error_map),
+        grid=SourceGrid(int(g.n_side), float(g.extent), float(g.center_x), float(g.center_y)),
+        lam=model.lam, chunk=model.chunk, device=device)
+    out.H_reg = torch.tensor(np.asarray(model.H_reg, np.float32), device=out.device)
+    out.logdet_H = float(model.logdet_H)
+    return out
+
+
 def mvn_from_reference(q_z, device=None) -> dist.MultivariateNormalTriL:
     """The port's MultivariateNormalTriL of a JAX surrogate (``loc`` and
     ``scale_tril`` read as numpy), e.g. to start the port's HMC or SVI from

@@ -31,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from gigalens_tpu_torch.ops.cuda import _build
 from gigalens_tpu_torch.ops.cuda.dft_conv import chain_macs
@@ -247,7 +248,9 @@ def direct_conv_cuda(x, conv: "DirectConv", direction: str):
     out = torch.empty((bs, *out_shape), dtype=torch.float32, device=x.device)
     lib, ptr = _build.load(), _build.ptr
     fn = lib.gl_direct_conv_fwd if direction == "fwd" else lib.gl_direct_conv_transpose
-    with torch.cuda.device(x.device):
+    # one kernel symbol serves both directions: the range names the direction
+    # in a torch.profiler trace
+    with torch.cuda.device(x.device), record_function(f"direct_conv_{direction}"):
         err = fn(ptr(x), ptr(out), ptr(w), ptr(table), bs, conv.h, conv.w, conv.pool,
                  *w.shape[1:], pl["warps"], pl["hh"], pl["pw"], pl["ldp"], pl["smem"],
                  _build.stream(x.device))

@@ -219,6 +219,11 @@ class PSFConv:
         if self.kernel.ndim not in (2, 3):
             raise ValueError(f"kernel must be (kh, kw) or (S, kh, kw); got {self.kernel.shape}")
         self.n_scenes = self.kernel.shape[0] if self.kernel.ndim == 3 else None
+        if mode == "dft_hi":
+            # the JAX package's dft with HIGHEST-precision einsums (its TPU
+            # matmuls truncate to bf16 otherwise); K4 and its twins are full
+            # float32 here already
+            mode = "dft"
         if mode not in ("dft", "fft", "direct"):
             raise NotImplementedError(
                 f"PSF mode {mode!r} is not ported; use 'dft', 'fft' or 'direct'")

@@ -138,7 +138,7 @@ class LensSimulator(gmodel.VersionedAttrs):
             # dft folds the supersample average pool into the inverse transform
             self._conv = PSFConv(
                 kern, (self.h_ss, self.w_ss), mode=mode,
-                pool=self.supersample if mode == "dft" else 1, device=self.device,
+                pool=self.supersample if mode in ("dft", "dft_hi") else 1, device=self.device,
             )
 
         # ---- fused render -----------------------------------------------------
@@ -286,7 +286,9 @@ class LensSimulator(gmodel.VersionedAttrs):
 
     @staticmethod
     def _get(params, key, profiles):
-        return params.get(key, [{} for _ in profiles])
+        """``params[key]`` (empty dicts when absent); a non-dict ``params``
+        (a bare list of per-profile dicts) passes through, as in JAX."""
+        return params.get(key, [{} for _ in profiles]) if isinstance(params, dict) else params
 
     def _flat_light(self, params, no_deflection=False, stack_components=False):
         """Total surface brightness on the live supersampled pixels.

@@ -1,0 +1,139 @@
+"""Phase checkpointing for the inference pipeline (port of
+:mod:`gigalens_tpu.utils.checkpoint`).
+
+Each phase result is written as a plain ``.npz`` file with the JAX
+package's keys, so either package loads the other's files, and a rerun
+of the pipeline skips the phases already saved. ``load_*`` return the
+port's types on ``device`` (``None``: the CUDA card; the CPU only when
+asked for by name).
+"""
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from gigalens_tpu_torch.model import resolve_device
+from gigalens_tpu_torch.prob.distributions import MultivariateNormalTriL
+
+
+def _np(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _tensors(device, *arrays):
+    device = resolve_device(device)
+    return tuple(torch.as_tensor(np.array(a), device=device) for a in arrays)
+
+
+def save_map(path: str, z, chi2_history=None):
+    np.savez(path, z=_np(z),
+             chi2_history=_np(chi2_history) if chi2_history is not None else np.zeros(0))
+
+
+def load_map(path: str, device=None):
+    with np.load(path) as d:
+        return _tensors(device, d["z"], d["chi2_history"])
+
+
+def save_svi(path: str, q_z: MultivariateNormalTriL, losses=None):
+    np.savez(path, loc=_np(q_z.loc), scale_tril=_np(q_z.scale_tril),
+             losses=_np(losses) if losses is not None else np.zeros(0))
+
+
+def load_svi(path: str, device=None):
+    with np.load(path) as d:
+        loc, tril, losses = _tensors(device, d["loc"], d["scale_tril"], d["losses"])
+    return MultivariateNormalTriL(loc, tril), losses
+
+
+def save_hmc(path: str, result):
+    np.savez(path, samples=_np(result.samples), accept_rate=_np(result.accept_rate),
+             step_size=_np(result.step_size), final_state=_np(result.final_state),
+             trajectory_length=_np(result.trajectory_length),
+             divergences=_np(result.divergences))
+
+
+def load_hmc(path: str, device=None):
+    """An :class:`~gigalens_tpu_torch.inference.hmc.HMCResult`. The files
+    carry no leapfrog count (the JAX package writes none), so
+    ``total_leapfrogs`` is 0 on a loaded result. Older files without
+    ``trajectory_length`` or ``divergences`` load with a 0-d zero and
+    per-chain zeros."""
+    from gigalens_tpu_torch.inference.hmc import HMCResult
+
+    with np.load(path) as d:
+        traj = d["trajectory_length"] if "trajectory_length" in d else np.zeros((), np.float32)
+        # pre-divergence-field files: per-chain zeros, not a 0-d default
+        # (consumers reshape per scene / sum per chain)
+        div = (d["divergences"] if "divergences" in d
+               else np.zeros((d["samples"].shape[1],), np.int32))
+        arrays = _tensors(device, d["samples"], d["accept_rate"], d["step_size"],
+                          d["final_state"], traj, div)
+    return HMCResult(*arrays, total_leapfrogs=0)
+
+
+def save_smc(path: str, result):
+    np.savez(path, particles=_np(result.particles), num_stages=np.asarray(result.num_stages),
+             log_scalings=_np(result.log_scalings), post_samples=_np(result.post_samples),
+             final_beta=_np(result.final_beta), log_evidence=_np(result.log_evidence))
+
+
+def load_smc(path: str, device=None):
+    """An :class:`~gigalens_tpu_torch.inference.smc.SMCResult`; an older
+    file without ``log_evidence`` loads with a 0-d zero."""
+    from gigalens_tpu_torch.inference.smc import SMCResult
+
+    with np.load(path) as d:
+        lz = d["log_evidence"] if "log_evidence" in d else np.zeros((), np.float32)
+        particles, scalings, post, beta, lz = _tensors(
+            device, d["particles"], d["log_scalings"], d["post_samples"], d["final_beta"], lz)
+        num_stages = int(d["num_stages"])
+    return SMCResult(particles, num_stages, scalings, post, beta, lz)
+
+
+class PipelineCheckpointer:
+    """Resumable MAP -> SVI -> HMC (/ SMC) runner: each ``run_*`` loads
+    the phase's saved result if there is one, else runs ``fn`` and saves
+    what it returns. Loaded results go to ``device`` (``None``: the CUDA
+    card)."""
+
+    def __init__(self, directory: str, device=None):
+        self.dir = directory
+        self.device = resolve_device(device)
+        os.makedirs(directory, exist_ok=True)
+
+    def _p(self, name):
+        return os.path.join(self.dir, f"{name}.npz")
+
+    def has(self, name: str) -> bool:
+        return os.path.exists(self._p(name))
+
+    def run_map(self, fn):
+        if self.has("map"):
+            return load_map(self._p("map"), self.device)
+        z, hist = fn()
+        save_map(self._p("map"), z, hist)
+        return z, hist
+
+    def run_svi(self, fn):
+        if self.has("svi"):
+            return load_svi(self._p("svi"), self.device)
+        q_z, losses = fn()
+        save_svi(self._p("svi"), q_z, losses)
+        return q_z, losses
+
+    def run_hmc(self, fn):
+        if self.has("hmc"):
+            return load_hmc(self._p("hmc"), self.device)
+        res = fn()
+        save_hmc(self._p("hmc"), res)
+        return res
+
+    def run_smc(self, fn):
+        if self.has("smc"):
+            return load_smc(self._p("smc"), self.device)
+        res = fn()
+        save_smc(self._p("smc"), res)
+        return res

@@ -119,12 +119,21 @@ def test_fft_mode_and_average_pool_match_jax(setup):
 
 
 def test_unported_modes_raise(setup):
-    """JAX's "dft_hi" (a TPU precision switch) is not a port mode, and a
-    per-scene stack has no direct mode, as in JAX."""
-    with pytest.raises(NotImplementedError):
-        PSFConv(setup["kern"], (40, 40), mode="dft_hi", device="cpu")
+    """JAX's "dft_hi" (its dft with HIGHEST-precision TPU matmuls) is the
+    port's "dft", which is full float32 already: the same route and the
+    same output bit for bit, within REL of JAX's dft_hi; a per-scene stack
+    has no direct mode, as in JAX, and an unknown mode raises."""
+    hi = PSFConv(setup["kern"], (40, 40), mode="dft_hi", pool=2, device="cpu")
+    assert hi.mode == "dft" and hi.pool == 2 and hi.route == setup["conv"].route
+    x = torch.tensor(setup["x"])
+    out = hi(x)
+    assert torch.equal(out, setup["conv"](x))
+    jhi = JPSFConv(setup["kern"], (40, 40), mode="dft_hi", pool=2, pallas=False)
+    _close(out.numpy(), jhi(jnp.asarray(setup["x"])))
     with pytest.raises(NotImplementedError):
         PSFConv(np.stack([setup["kern"]] * 2), (40, 40), mode="direct", device="cpu")
+    with pytest.raises(NotImplementedError):
+        PSFConv(setup["kern"], (40, 40), mode="dft_lo", device="cpu")
 
 
 # (image shape, kernel shape, pool): fw = 45 (odd) for 36-px rows with a 9-px

@@ -200,7 +200,8 @@ def test_port_never_imports_jax():
         "import sys, gigalens_tpu_torch, gigalens_tpu_torch.interop, "
         "gigalens_tpu_torch.inference, gigalens_tpu_torch.simulator, "
         "gigalens_tpu_torch.ops.cuda, gigalens_tpu_torch.profiles.mass, "
-        "gigalens_tpu_torch.profiles.light\n"
+        "gigalens_tpu_torch.profiles.light, gigalens_tpu_torch.inversion, "
+        "gigalens_tpu_torch.utils\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'gigalens_tpu'))\n"
         "assert not bad, bad\n"
@@ -233,6 +234,21 @@ def test_unported_inputs_raise(scene):
     sim = LensSimulator(scene["tphys"], dataclasses.replace(scene["tcfg"], use_fft=False), bs=1,
                         device="cpu")
     assert sim._conv.mode == "direct"
-    seq = ModellingSequence(scene["tphys"], scene["tprob"], scene["tcfg"], device="cpu")
-    with pytest.raises(NotImplementedError, match="M19"):
-        seq.fit(checkpoint_dir="unused")
+    # phase checkpointing is ported (M19); sample sharding over a mesh is not
+    from gigalens_tpu_torch.inference.svi import fit_svi_survey
+
+    with pytest.raises(NotImplementedError, match="M20"):
+        fit_svi_survey(scene["tprob"], sim, torch.zeros((1, scene["tprob"].prior.d)),
+                       optim.scale_by_adam(), mesh=object())
+
+
+def test_simulator_get_passes_non_dict_params():
+    """``LensSimulator._get``: a dict gives its group (empty dicts when the
+    group is absent), a non-dict (a bare per-profile list) passes through,
+    as JAX's ``simulator.py:343-344``."""
+    profs = [EPL(18), Shear()]
+    bare = [dict(theta_E=1.0), dict(gamma1=0.0)]
+    for get in (LensSimulator._get, JLensSimulator._get):
+        assert get(bare, "lens_mass", profs) is bare
+        assert get(dict(lens_mass=bare), "lens_mass", profs) is bare
+        assert get({}, "lens_mass", profs) == [{}, {}]

@@ -2,10 +2,11 @@
 
 ``ModellingSequence.fit()`` at the tiny size of
 ``tests/test_inference.py::test_fit_one_call_pipeline`` (finite samples, the
-phase times, a summary, per-phase progress), ``checkpoint_dir`` refused
-naming M19, and ``gigalens_tpu_torch.bench`` at a micro configuration:
-the JSON line carries the JAX bench's keys less ``aot``/``mfu``/``peak_*``,
-and a failed phase gives ``complete: false`` and a nonzero exit.
+phase times, a summary, per-phase progress), ``checkpoint_dir`` loading
+the JAX package's phase files, and ``gigalens_tpu_torch.bench`` at a micro
+configuration: the JSON line carries the JAX bench's keys less
+``aot``/``mfu``/``peak_*``, and a failed phase gives ``complete: false``
+and a nonzero exit.
 """
 import json
 
@@ -57,9 +58,32 @@ def test_fit_one_call_pipeline(seq, demo_prior):
     assert calls == [("map", 10), ("svi", 10), ("hmc", 20)]
 
 
-def test_fit_checkpoint_dir_names_m19(seq, tmp_path):
-    with pytest.raises(NotImplementedError, match="M19"):
-        seq.fit(checkpoint_dir=str(tmp_path))
+def test_fit_checkpoint_dir_names_m19(seq, demo_prior, tmp_path):
+    """``checkpoint_dir`` (M19, ported): a directory holding all three
+    phases, written by the JAX package, is loaded and no phase runs."""
+    import jax.numpy as jnp
+
+    from gigalens_tpu.inference.hmc import HMCResult as JHMCResult
+    from gigalens_tpu.prob.distributions import MultivariateNormalTriL as JMVN
+    from gigalens_tpu.utils import checkpoint as jckpt
+
+    d = demo_prior.d
+    rng = np.random.default_rng(5)
+    z = rng.normal(0, 0.1, (8, d)).astype(np.float32)
+    samples = rng.normal(0, 0.1, (6, 4, d)).astype(np.float32)
+    jckpt.save_map(str(tmp_path / "map.npz"), jnp.asarray(z))
+    jckpt.save_svi(str(tmp_path / "svi.npz"), JMVN(jnp.zeros(d), 0.1 * jnp.eye(d)),
+                   jnp.arange(3.0))
+    jckpt.save_hmc(str(tmp_path / "hmc.npz"), JHMCResult(
+        jnp.asarray(samples), jnp.ones(7), jnp.float32(0.1), jnp.asarray(samples[-1])))
+    calls = []
+    out = seq.fit(checkpoint_dir=str(tmp_path), n_samples=8,
+                  progress=lambda phase, step, value: calls.append(phase))
+    assert calls == []
+    np.testing.assert_array_equal(out["z_map"].numpy(), z)
+    np.testing.assert_array_equal(out["hmc"].samples.numpy(), samples)
+    np.testing.assert_array_equal(out["losses"].numpy(), [0.0, 1.0, 2.0])
+    assert out["best"].shape == (1, d) and "max_rhat" in out["summary"]["_global"]
 
 
 def test_bench_json_line_and_exit_code(capsys):
