@@ -6,6 +6,7 @@
                                       # kernels line says "partial": true, has no
                                       # launch counts, and no ok line follows
     python3 chip_smoke.py --inversion # steps 1, 2 and 12 only, the same kind of aid
+    python3 chip_smoke.py --mesh      # steps 1, 2 and 13 only, the same kind of aid
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the hand-written kernels from gigalens_tpu_torch/csrc/ with nvcc
@@ -123,14 +124,32 @@
    direct K4), stage 2 pixelated (32 x 200, the direct K4 counted exactly)
    through PipelineCheckpointer.run_map and reloaded from its file (no
    launches, the same best log_prob), gated on best red-chi2 <= CHI2_GATE.
-13. Ends with the card line, a JSON line of per-kernel results and the ok
+13. Runs sample sharding (gigalens_tpu_torch.parallel) on the bench scene
+   through ModellingSequence(mesh=...) at the pipeline's widths with short
+   step counts (MAP 500 x 50, SVI 1000 x 20, ChEES HMC 50 x (20 + 20), SMC
+   1000 particles x 3 stages): in this process, then one nccl rank and two
+   gloo ranks on the card side by side, each held to the in-process run at
+   tests/test_sharding.py's tolerances (HMC from the in-process surrogate),
+   every rank's launch counters by the pipeline's rules, the phase inside
+   MESH_TIMEOUT.
+14. Ends with the card line, a JSON line of per-kernel results and the ok
    line.
 
-Every phase raises on failure (nothing is caught), so any failure exits
-nonzero before the ok line. Without a CUDA device it exits nonzero at once.
+Step 11 runs in a second process (spawned) beside steps 6-8 and step 10's
+sampling, which are host-bound like it. Every measurement made for the
+record (the stage profiles of steps 7, 10 and 11, step 9, step 10's and
+11's kernels rows, the hot loop) waits until the card is one process's:
+step 11's until the main process has sampled step 10, the main process's
+until step 11's process has ended. The walls of the sampling phases of
+steps 6-8, 10 and 11 are taken beside the other process.
+
+Every phase raises on failure (nothing is caught; step 11's process is
+stopped when the main process fails, and its failure raises in the main
+process), so any failure exits nonzero before the ok line. Without a CUDA device it exits nonzero at once.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
@@ -1313,9 +1332,10 @@ def smc_phase(pipe, rec):
     read just after (the pipeline's phase hook). Raises unless beta reaches
     1 inside max_stage, the log-evidence and the (100, 1000, d) post samples
     are finite, the last post draw's mean red-chi2 is <= CHI2_GATE, and K2/K3
-    launched with no K4 by either route. Then times one stage of moves from
-    the final cloud twice, plain and under torch.profiler, for the host ms a
-    leapfrog and the device's idle share. Returns the SMC result."""
+    launched with no K4 by either route. Returns the SMC result and a
+    callable that times one stage of moves from the final cloud twice,
+    plain and under torch.profiler, for the host ms a leapfrog and the
+    device's idle share."""
     import torch
 
     from gigalens_tpu_torch import bench
@@ -1363,16 +1383,18 @@ def smc_phase(pipe, rec):
                       max_stage=1, seed=PROFILE_SEED)
         return out.num_moves * c["leapfrog_steps"] + 1
 
-    rows, evals_p = profile_stage("SMC", stage)
-    groups = {"K2+K3": [0.0, 0], "cuFFT": [0.0, 0], "the rest": [0.0, 0]}
-    for us, count, key in rows:
-        g = groups["K2+K3" if "fused_render" in key
-                   else "cuFFT" if "fft" in key.lower() else "the rest"]
-        g[0], g[1] = g[0] + us, g[1] + count
-    print("SMC device time a leapfrog by group: " + ", ".join(
-        f"{name} {us / 1e3 / evals_p:.3f} ms ({count / evals_p:.0f} launches)"
-        for name, (us, count) in groups.items()), flush=True)
-    return res
+    def profiled():
+        rows, evals_p = profile_stage("SMC", stage)
+        groups = {"K2+K3": [0.0, 0], "cuFFT": [0.0, 0], "the rest": [0.0, 0]}
+        for us, count, key in rows:
+            g = groups["K2+K3" if "fused_render" in key
+                       else "cuFFT" if "fft" in key.lower() else "the rest"]
+            g[0], g[1] = g[0] + us, g[1] + count
+        print("SMC device time a leapfrog by group: " + ", ".join(
+            f"{name} {us / 1e3 / evals_p:.3f} ms ({count / evals_p:.0f} launches)"
+            for name, (us, count) in groups.items()), flush=True)
+
+    return res, profiled
 
 
 def profile_stage(label, stage):
@@ -1602,9 +1624,9 @@ def series_checks(members, prior, sim, dev):
 
 def cluster_phase():
     """The cluster scene of config #5 (dpie arm) through MAP -> SMC on the
-    builder's series stage, then the lstsq MAP, the kernels at the phase's
-    shapes and the cluster hot loop. Returns (kernels rows, launch counts by
-    phase)."""
+    builder's series stage, then the lstsq MAP. Returns (launch counts by
+    phase, a callable that runs cluster_timed on the phase's states and
+    returns its kernels rows)."""
     import numpy as np
     import torch
 
@@ -1745,9 +1767,6 @@ def cluster_phase():
                       auxiliar="none", seed=PROFILE_SEED)
         return out.num_moves * CL_LEAPFROG + 1
 
-    profile_stage("cluster SMC", stage)
-    print(f"cluster: SMC stage profiled {clock()}", flush=True)
-
     # 5. the lstsq MAP (BackwardProbModel, Shapelets(4)[lstsq]): K6/K7
     phys_l, prior_l, _, _ = cluster_scene(lstsq=True, members=members)
     prob_l = BackwardProbModel(prior_l, obs, background_rms=CL_BKG, exp_time=CL_EXP_TIME,
@@ -1773,7 +1792,28 @@ def cluster_phase():
                    banned=("fused_builder_fwd_sum",) + BUILDER_ROUTE_BANNED,
                    exact=dict(fused_builder_fwd_components=n, fused_builder_bwd=n))
 
-    # 6. K5, K6, K7 and the direct K4 at the phase's shapes and real grids
+    print(f"cluster phase: sampled in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts, lambda: cluster_timed(dev, stage, prior, prior_l, (sim_map, z_map),
+                                         (sim_smc, res), (sim_l, z_l))
+
+
+def cluster_timed(dev, stage, prior, prior_l, map_, smc, lstsq):
+    """The cluster phase's measurements, run with the card to this process
+    alone: one SMC stage profiled; 6. K5, K6, K7 and the direct K4 at the
+    phase's shapes and real grids (``map_``, ``smc``, ``lstsq``: each
+    (simulator, states)); the cluster hot loop. Returns kernels rows."""
+    import torch
+
+    from gigalens_tpu_torch.ops.cuda import fused_builder as fb
+
+    t_phase = time.perf_counter()
+
+    def clock():
+        return f"[{time.perf_counter() - t_phase:.1f} s into the measurements]"
+
+    profile_stage("cluster SMC", stage)
+    print(f"cluster: SMC stage profiled {clock()}", flush=True)
+    (sim_map, z_map), (sim_smc, res), (sim_l, z_l) = map_, smc, lstsq
     gen = torch.Generator(device=dev).manual_seed(12)
     kernels = []
     for phase, sim, z, pr, summed in (("cluster_map", sim_map, z_map, prior, True),
@@ -1797,8 +1837,8 @@ def cluster_phase():
             kernels += [dict(r, phase=phase) for r in rows]
     print(f"cluster: kernels checked {clock()}", flush=True)
     cluster_hot_loop(dev)
-    print(f"cluster phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return kernels, counts
+    print(f"cluster phase: measured in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return kernels
 
 
 def cluster_hot_loop(dev):
@@ -1884,7 +1924,7 @@ SV_LSTSQ_STEPS = 50
 SV_CHI2 = (0.85, 1.15)
 
 
-def survey_phase():
+def survey_phase(quiet=None):
     """Survey mode at full width on the card: the catalogue of
     gigalens_tpu_torch.bench.survey_scene through SurveySequence. MAP (64
     starts a scene x 700 steps; K2/K3 and the direct K4 once a scene each
@@ -1898,9 +1938,10 @@ def survey_phase():
     stage profiled), a 50-step lstsq MAP with both lights linear
     (SurveyBackwardProbModel: K6/K7 exactly 50, the direct K4 4 x 50 each
     way) and its components under the per-scene PSFs held against S
-    single-scene simulators (F-ref-6); then K2/K3 at the MAP shape and the
-    direct K4 at one scene's launch as kernel rows. Returns (kernels rows,
-    launch counts by phase)."""
+    single-scene simulators (F-ref-6); then, after ``quiet()`` returns (the
+    card is this process's alone from then on), the SMC stage profile, and
+    K2/K3 at the MAP shape and the direct K4 at one scene's launch as
+    kernel rows. Returns (kernels rows, launch counts by phase)."""
     import numpy as np
     import torch
 
@@ -2064,8 +2105,6 @@ def survey_phase():
                       seed=PROFILE_SEED)
         return out.num_moves * SV_SMC_L + 1
 
-    profile_stage("survey SMC", stage)
-
     # 5. lstsq MAP: both lights linear (depth 2), K6/K7 and the direct K4
     tree = prior.tree
     prior_l = Prior(dict(lens_mass=tree["lens_mass"], **{
@@ -2112,7 +2151,13 @@ def survey_phase():
     print(f"survey lstsq: stacked components {tuple(got.shape)} against {S} single-scene "
           f"simulators: rel err {rel:.3e}", flush=True)
 
+    # the card to this process from here: one SMC stage profiled, then
     # 6. K2/K3 at the MAP shape, the direct K4 at one scene's launch
+    if quiet is not None:
+        t0 = time.perf_counter()
+        quiet()
+        walls["quiet_wait"] = time.perf_counter() - t0
+    profile_stage("survey SMC", stage)
     gen = torch.Generator(device=dev).manual_seed(13)
     sim_map = seq._sim(S * SV_MAP_N)
     params = fr.pack_params(prior.constrain(z_map)).contiguous()
@@ -2126,6 +2171,79 @@ def survey_phase():
     print(f"survey phase: {time.perf_counter() - t_phase:.1f} s; walls (s) "
           + ", ".join(f"{k} {v:.2f}" for k, v in walls.items()), flush=True)
     return kernels, counts
+
+
+# the survey phase runs in a second process beside steps 6-10: every phase
+# there is host-bound (the card idle 68-92% of their walls), so the two
+# share the card's idle time. Each process's measurements (stage profiles,
+# kernels rows, the hot loop) wait until the card is its own: the survey's
+# until the main process has reached the end of step 10's sampling, the
+# main process's until the survey process has ended. The walls of the
+# sampling phases are taken beside the other process. The worker's limit:
+SURVEY_TIMEOUT = 1000.0
+
+
+def survey_worker(quiet, out_path):
+    """survey_phase() in a spawned process: loads the kernels step 2 built,
+    waits on the event ``quiet`` before its measurements, and saves its
+    (kernels rows, launch counts) to ``out_path``."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    from gigalens_tpu_torch.ops.cuda import _build
+
+    _build.load()
+    kernels, counts = survey_phase(quiet=quiet.wait)
+    torch.save(dict(kernels=kernels, counts=counts), out_path)
+
+
+class SurveyProcess:
+    """survey_worker in a process of its own (start method spawn), started
+    on entering; ``check()`` raises once it has failed, ``finish()`` lets it
+    measure, joins it within what is left of SURVEY_TIMEOUT and returns its
+    (kernels rows, launch counts). Leaving the block stops it if it still
+    runs, so a failure on either side ends both."""
+
+    def __enter__(self):
+        import multiprocessing
+        import tempfile
+
+        ctx = multiprocessing.get_context("spawn")
+        self.dir = tempfile.TemporaryDirectory(prefix="survey_")
+        self.out = str(Path(self.dir.name) / "survey.pt")
+        self.quiet = ctx.Event()
+        self.proc = ctx.Process(target=survey_worker, args=(self.quiet, self.out))
+        self.t0 = time.perf_counter()
+        self.proc.start()
+        print("survey phase: started in a second process", flush=True)
+        return self
+
+    def check(self):
+        if self.proc.exitcode not in (None, 0):
+            raise AssertionError(f"the survey process failed (exit code {self.proc.exitcode})")
+
+    def finish(self):
+        import torch
+
+        self.check()
+        t_wait = time.perf_counter()
+        self.quiet.set()
+        self.proc.join(max(SURVEY_TIMEOUT - (time.perf_counter() - self.t0), 0.0))
+        if self.proc.exitcode is None:
+            raise AssertionError(f"the survey process not done in {SURVEY_TIMEOUT} s")
+        self.check()
+        print(f"survey phase: joined {time.perf_counter() - self.t0:.1f} s after its start, "
+              f"{time.perf_counter() - t_wait:.1f} s after the main process's sampling",
+              flush=True)
+        out = torch.load(self.out, weights_only=False)  # this script's own file
+        return out["kernels"], out["counts"]
+
+    def __exit__(self, *exc):
+        if self.proc.is_alive():
+            self.proc.kill()
+        self.proc.join()
+        self.dir.cleanup()
+        return False
 
 
 # the inversion phase (scripts/bench_inversion.py's scene, the data and
@@ -2472,6 +2590,209 @@ def inversion_phase():
     return kernels, {"inversion": counts32}
 
 
+# the mesh phase: the bench scene through ModellingSequence(mesh=...) at the
+# pipeline's widths with short step counts (a parity phase, no gate on
+# convergence): MAP starts x steps, SVI draws x steps, HMC chains x
+# (burn-in + results), SMC particles x stages (3 leapfrogs a move, 2 post
+# steps); the whole phase's time limit
+MESH_MAP, MESH_VI, MESH_HMC, MESH_SMC = (500, 50), (1000, 20), (50, 20, 20), (1000, 3)
+MESH_TIMEOUT = 150.0
+# tests/test_sharding.py's tolerances: (rtol, atol) per compared result
+MESH_TOL = dict(map=(1e-4, 1e-5), best=(1e-4, 1e-5), losses=(1e-4, 1e-2), mean=(1e-4, 1e-5),
+                scale_tril=(1e-3, 1e-5), hmc=(1e-4, 1e-4), final_beta=(1e-5, 1e-6),
+                particles=(5e-3, 5e-3))
+MESH_NEED = dict(map=(MAP_SVI_NEED, ()), svi=(MAP_SVI_NEED, ()), hmc=(HMC_NEED, HMC_BANNED),
+                 smc=(HMC_NEED, HMC_BANNED))
+
+
+def busy_share(prof, wall_s):
+    """The share of ``wall_s`` in which this process had a kernel running
+    on the card: the union of the kernels' intervals in a
+    ``torch.profiler`` window (CUDA activity only) over the wall, read from
+    the raw trace events (building the profiler's event tree for some
+    10^5 kernels would take longer than the phases)."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA and not e.is_user_annotation())
+    busy, end = 0, -math.inf
+    for t0, t1 in spans:
+        if t1 > end:
+            busy += t1 - max(t0, end)
+            end = t1
+    return busy * 1e-9 / wall_s
+
+
+def mesh_run(mesh, obs, n_hmc=MESH_HMC[0], q_ref=None):
+    """One rank's (or, with ``mesh=None``, the in-process) run of the mesh
+    phase on the bench scene's observation ``obs``: MAP from prior draws
+    and best_map_start, the FD Laplace factor, SVI, ChEES HMC (``n_hmc``
+    chains) from the surrogate ``q_ref`` ((loc, scale_tril): the in-process
+    run's, since SVI's all-reduce rounds differently from one process and
+    each phase is held to one process's from the same inputs; None: its own
+    SVI's), SMC from the prior. Each phase runs
+    between launch-counter resets under torch.profiler (CUDA activity
+    only); returns the global results, and per phase the launch counts, the
+    wall (host clock, the card synchronized) and the busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gigalens_tpu_torch import bench
+    from gigalens_tpu_torch.inference import ModellingSequence
+    from gigalens_tpu_torch.inference.sequence import map_optimizer, svi_optimizer
+    from gigalens_tpu_torch.model import ForwardProbModel
+    from gigalens_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from gigalens_tpu_torch.prob.distributions import MultivariateNormalTriL
+
+    t_enter = time.time()
+    dev = torch.device("cuda", 0) if mesh is None else mesh.device
+    phys, cfg, _ = bench.bench_scene(NUM_PIX)
+    prob = ForwardProbModel(bench.bench_prior(), obs, background_rms=bench.BKG,
+                            exp_time=bench.EXP_TIME, device=dev)
+    seq = ModellingSequence(phys, prob, cfg, mesh=mesh, device=dev)
+    rec = {}
+
+    @contextlib.contextmanager
+    def phase(name):
+        torch.cuda.synchronize(dev)
+        reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            yield
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+        rec[name] = dict(counts=launch_counts(), wall=wall, busy=busy_share(prof, wall))
+
+    (n, steps), (n_vi, vi_steps) = MESH_MAP, MESH_VI
+    with phase("map"):
+        z = seq.MAP(map_optimizer(steps), n_samples=n, num_steps=steps, seed=0)
+        best = seq.best_map_start(z)
+    L0 = seq.laplace_scale_tril(best)
+    with phase("svi"):
+        q, losses = seq.SVI(best, svi_optimizer(vi_steps), n_vi=n_vi, num_steps=vi_steps,
+                            init_scales=L0, seed=1)
+    _, burnin, results = MESH_HMC
+    q_hmc = q if q_ref is None else MultivariateNormalTriL(*(t.to(dev) for t in q_ref))
+    with phase("hmc"):
+        res = seq.HMC(q_hmc, n_hmc=n_hmc, num_burnin_steps=burnin, num_results=results, seed=2)
+    particles, stages = MESH_SMC
+    with phase("smc"):
+        smc = seq.SMC(num_particles=particles, num_leapfrog_steps=3, post_sampling_steps=2,
+                      ess_threshold_ratio=0.6, max_stage=stages, seed=1)
+    out = dict(map=z, best=best, losses=losses, mean=q.mean(), scale_tril=q.scale_tril,
+               hmc=res.samples, final_beta=smc.final_beta, particles=smc.particles,
+               stages=smc.num_stages, leapfrogs=res.total_leapfrogs)
+    return dict(rec=rec, t_enter=t_enter, out={k: v.cpu() if isinstance(v, torch.Tensor) else v
+                                               for k, v in out.items()})
+
+
+def mesh_observation():
+    """The bench scene's observation of the pipeline phase (truth seeded 42,
+    noise seeded 1), rendered on cuda:0, as numpy."""
+    import torch
+
+    from gigalens_tpu_torch import bench
+    from gigalens_tpu_torch.simulator import LensSimulator
+
+    dev = torch.device("cuda", 0)
+    phys, cfg, _ = bench.bench_scene(NUM_PIX)
+    truth = bench.bench_prior().sample(torch.Generator(device=dev).manual_seed(42), 1)
+    with torch.no_grad():
+        img = LensSimulator(phys, cfg, bs=1, device=dev).simulate(truth)
+    return bench.observe(img, torch.Generator(device=dev).manual_seed(1)).cpu().numpy()
+
+
+def mesh_report(label, ranks, ref, t_start, card):
+    """Checks one configuration's mesh_run results ``ranks`` (one a rank)
+    against the in-process ``ref`` at MESH_TOL (SMC stages and HMC
+    leapfrogs exactly), every rank's results against rank 0's bitwise and
+    every rank's launch counters by MESH_NEED; prints each rank's start-up
+    (from ``t_start``, wall clock), walls and busy shares; returns the
+    configuration's summary."""
+    import torch
+
+    for r, res in enumerate(ranks):
+        for name, (need, banned) in MESH_NEED.items():
+            check_launches(f"mesh {label} rank {r} {name}", res["rec"][name]["counts"],
+                           need, banned)
+        if r > 0:
+            for k, v in res["out"].items():
+                if (not torch.equal(v, ranks[0]["out"][k]) if isinstance(v, torch.Tensor)
+                        else v != ranks[0]["out"][k]):
+                    raise AssertionError(f"mesh {label}: rank {r}'s {k} is not rank 0's")
+    got = ranks[0]["out"]
+    errs = {k: check_close(f"mesh {label} {k}", got[k], ref[k], *tol)
+            for k, tol in MESH_TOL.items()}
+    if got["stages"] != ref["stages"] or got["leapfrogs"] != ref["leapfrogs"]:
+        raise AssertionError(f"mesh {label}: SMC stages / HMC leapfrogs "
+                             f"{got['stages']} / {got['leapfrogs']}, in-process "
+                             f"{ref['stages']} / {ref['leapfrogs']}")
+    rows = [{name: dict(wall_s=round(p["wall"], 3), busy=round(p["busy"], 4),
+                        launches={k: n for k, n in p["counts"].items() if n})
+             for name, p in res["rec"].items()} for res in ranks]
+    startup = [round(res["t_enter"] - t_start, 1) for res in ranks]
+    for r, row in enumerate(rows):
+        print(f"mesh {label} rank {r}: started in {startup[r]} s; " + ", ".join(
+            f"{name} {p['wall_s']:.3f} s busy {100 * p['busy']:.1f}%"
+            for name, p in row.items()) + f" ({card})", flush=True)
+    print(f"mesh {label}: max |err| vs the in-process run {json.dumps(errs)}", flush=True)
+    return dict(ranks=rows, startup_s=startup, max_abs_err=errs)
+
+
+def mesh_phase(card):
+    """Sample sharding over a mesh (gigalens_tpu_torch.parallel) on the
+    card: mesh_run three ways on mesh_observation() -- (a) in this process
+    with mesh=None, (b) one nccl rank, (c) two gloo ranks sharing cuda:0
+    (nccl refuses two ranks on one card) -- spawned by
+    parallel.spawn_ranks (start method spawn, a file rendezvous) after step
+    2's build, so the ranks only load the kernels, (b) and (c) side by
+    side; each configuration checked by mesh_report, HMC from (a)'s
+    surrogate. A hang, a rank's failure or the phase outlasting
+    MESH_TIMEOUT raises after the ranks are stopped. The walls and busy
+    shares printed are three ranks sharing one card: not a scaling
+    number."""
+    from gigalens_tpu_torch.parallel import spawn_ranks
+
+    t_phase = time.perf_counter()
+    obs = mesh_observation()
+
+    def left():
+        """Seconds of the phase's limit left for the next spawn."""
+        s = MESH_TIMEOUT - (time.perf_counter() - t_phase)
+        if s <= 0:
+            raise AssertionError(f"mesh phase over its {MESH_TIMEOUT} s")
+        return s
+
+    t0 = time.time()
+    one = mesh_run(None, obs)
+    ref = one["out"]
+    summary = {"(a) in-process": mesh_report("(a) in-process", [one], ref, t0, card)}
+    print(f"mesh (a) in-process: done {time.perf_counter() - t_phase:.1f} s into the phase",
+          flush=True)
+    # (b) and (c) side by side, each spawn_ranks call on a thread of its own
+    configs = (("(b) 1 nccl rank", 1, "nccl"), ("(c) 2 gloo ranks", 2, "gloo"))
+    q_ref = (ref["mean"], ref["scale_tril"])
+    t0 = time.time()
+    with concurrent.futures.ThreadPoolExecutor(len(configs)) as pool:
+        timeout = left()
+        runs = [pool.submit(spawn_ranks, mesh_run, nprocs, backend, "cuda:0",
+                            args=(obs, MESH_HMC[0], q_ref), timeout=timeout)
+                for _, nprocs, backend in configs]
+        ranks = [r.result() for r in runs]
+    for (label, _, _), rk in zip(configs, ranks):
+        summary[label] = mesh_report(label, rk, ref, t0, card)
+    print(f"mesh (b), (c): done {time.perf_counter() - t_phase:.1f} s into the phase",
+          flush=True)
+    wall = time.perf_counter() - t_phase
+    print(f"mesh JSON: {json.dumps(dict(summary, card=card, phase_s=round(wall, 1)))}",
+          flush=True)
+    if wall > MESH_TIMEOUT:
+        raise AssertionError(f"mesh phase took {wall:.1f} s, over {MESH_TIMEOUT} s")
+    print(f"mesh phase: {wall:.1f} s; (b) and (c) equal (a) at the stated tolerances",
+          flush=True)
+
+
 def render_rows(params, sim, gen, phase, where):
     """K2 and K3 at ``params``' shape on ``sim``'s grid, each against its
     float64 twin with kernel_checks' tolerances and timed against its
@@ -2567,6 +2888,13 @@ def main(argv=()):
             print(f"  ptxas: {line.strip()}", flush=True)
     _build.load()
 
+    if "--mesh" in argv:
+        # a development aid: the mesh phase alone; no ok line follows
+        mesh_phase(card)
+        print(card)
+        print(json.dumps({"partial": True, "kernels": []}))
+        return 0
+
     if "--inversion" in argv:
         # a development aid: the inversion phase alone; no ok line follows
         kernels, counts = inversion_phase()
@@ -2588,20 +2916,27 @@ def main(argv=()):
         return 0
     counts = {"bench": main_path(MAP_STEPS), "chain": chain_path(CHAIN_STEPS),
               "S": family_path("S", MAP_STEPS), "L": family_path("L", MAP_STEPS)}
-    pipe, rec = pipeline_phase()
-    smc_res = smc_phase(pipe, rec)
-    positions_phase(pipe)
+    # steps 6-8 and 10's sampling beside step 11 in a second process; then
+    # each side's measurements with the card to itself
+    with SurveyProcess() as survey:
+        pipe, rec = pipeline_phase()
+        survey.check()
+        smc_res, smc_profile = smc_phase(pipe, rec)
+        positions_phase(pipe)
+        survey.check()
+        cluster_counts, cluster_timed = cluster_phase()
+        survey_kernels, survey_counts = survey.finish()
+    smc_profile()
     kernels += pipeline_kernel_checks(pipe, smc_res)
     counts.update(svi=rec["svi"]["counts"], hmc=rec["hmc"]["counts"], smc=rec["smc"]["counts"])
-    cluster_kernels, cluster_counts = cluster_phase()
-    kernels += cluster_kernels
+    kernels += cluster_timed()
     counts.update(cluster_counts)
-    survey_kernels, survey_counts = survey_phase()
     kernels += survey_kernels
     counts.update(survey_counts)
     inversion_kernels, inversion_counts = inversion_phase()
     kernels += inversion_kernels
     counts.update(inversion_counts)
+    mesh_phase(card)
     # launches: each kernel's count in the phase of its row (K1-K4 the bench
     # scene's MAP, K5 and K7 family S's, K6 and K7-components family L's;
     # the rows at the SVI, HMC and SMC shapes the pipeline's SVI, HMC and

@@ -24,6 +24,15 @@ Knobs: ``GIGALENS_BENCH_SCALE`` (tiny | small | full), ``GIGALENS_BENCH_SVI_STEP
 It runs on the CUDA device and fails when there is none; ``--device cpu``
 runs it on the CPU instead.
 
+Under ``torchrun --nproc-per-node N -m gigalens_tpu_torch.bench`` every
+process drives its own card (``cuda:LOCAL_RANK``) in one ``nccl`` process
+group (``gloo`` with ``--device cpu``), and every phase shards its samples
+over the group (:mod:`gigalens_tpu_torch.parallel`), as the JAX bench takes
+all devices; only rank 0 logs and prints the JSON line, which then also
+carries ``ranks``. A phase that fails on any rank prints that rank's
+traceback, tagged with its rank, and ends the job with a nonzero exit
+(the other ranks would wait in its collectives): no JSON line then.
+
 Prints ONE JSON line with the keys of the JAX bench (``metric``, ``value``,
 ``phase_s``, ``seeds``, ``min_ess``, ``max_rhat``, ...), without its
 ``aot``, ``mfu`` and ``peak_*`` blocks. Each phase runs isolated: a failure
@@ -42,6 +51,7 @@ import traceback
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 CONFIGS = {
     "tiny": dict(num_pix=40, map_n=32, map_steps=30, vi_n=32, vi_steps=30,
@@ -63,7 +73,23 @@ SMC_CONFIGS = {
 DELTA_PIX, SUPERSAMPLE, BKG, EXP_TIME = 0.065, 2, 0.2, 100.0
 
 
+def _grouped():
+    return dist.is_available() and dist.is_initialized()
+
+
+def _rank():
+    return dist.get_rank() if _grouped() else 0
+
+
 def log(msg):
+    if _rank() == 0:
+        print(msg, file=sys.stderr, flush=True)
+
+
+def log_failure(msg):
+    """A failure, on every rank, tagged with the rank under a process group."""
+    if _grouped():
+        msg = f"[rank {dist.get_rank()} of {dist.get_world_size()}] {msg}"
     print(msg, file=sys.stderr, flush=True)
 
 
@@ -243,6 +269,8 @@ class Pipeline:
                                      device=self.device)
         self.result = new_result(cfg, torch.cuda.get_device_name(self.device)
                                  if self.device.type == "cuda" else "cpu")
+        if self.seq.mesh.group is not None:
+            self.result["ranks"] = self.seq.mesh.size
 
     def _score(self, z):
         """(log_prob, reduced chi2) of ``z`` on the fast simulator."""
@@ -409,7 +437,9 @@ def run_pipeline(cfg, hmc_seeds=None, device="cuda", phase_hook=None) -> Pipelin
 
 def main(cfg=None, device="cuda", smc=False) -> int:
     """Runs the pipeline (and SMC when ``smc``) with each phase isolated,
-    prints the JSON line, and returns 0 only if every phase completed."""
+    prints the JSON line, and returns 0 only if every phase completed.
+    Under a process group a failed phase raises instead, after its
+    traceback: the other ranks cannot go on without this one."""
     cfg = cfg or config_from_env()
     failures = []
     result = new_result(cfg)
@@ -420,15 +450,22 @@ def main(cfg=None, device="cuda", smc=False) -> int:
             try:
                 phase()
             except Exception as e:
-                log(f"PHASE {name} FAILED:\n{traceback.format_exc(limit=8)}")
+                log_failure(f"PHASE {name} FAILED:\n{traceback.format_exc(limit=8)}")
                 failures.append(dict(phase=name, path="primary",
                                      error=f"{type(e).__name__}: {str(e)[:500]}"))
                 break  # every later phase needs this one's output
     except Exception as e:
-        log(traceback.format_exc())
+        log_failure(traceback.format_exc())
         failures.append(dict(phase="setup", path="primary",
                              error=f"{type(e).__name__}: {str(e)[:500]}"))
-    print(json.dumps(finish(result, failures)), flush=True)
+    if failures and _grouped():
+        # the other ranks wait in this phase's collectives for this rank:
+        # end it, and with it the job (torchrun stops the other ranks)
+        raise RuntimeError(f"rank {dist.get_rank()}: phase {failures[0]['phase']} failed "
+                           f"({failures[0]['error']})")
+    finish(result, failures)
+    if _rank() == 0:
+        print(json.dumps(result), flush=True)
     return 0 if result["complete"] else 1
 
 
@@ -440,7 +477,19 @@ def _cli(argv):
     ap.add_argument("--smc", action="store_true",
                     help="also run SMC and add its block to the JSON line")
     args = ap.parse_args(argv)
-    return main(device=args.device, smc=args.smc)
+    if "RANK" not in os.environ:
+        return main(device=args.device, smc=args.smc)
+    # under torchrun: one process a device, every phase's samples sharded
+    # over the world group (ModellingSequence's default mesh)
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(device)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    try:
+        return main(device=device, smc=args.smc)
+    finally:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

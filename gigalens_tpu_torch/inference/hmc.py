@@ -17,7 +17,20 @@ One batched chain loop on the device:
 
 The step counter is a host integer, so the adaptation switches are Python
 branches. The leapfrog loop runs ``int(n_steps.max())`` steps, read from
-the device once per HMC step: the only per-step host sync. Not ported: the
+the device once per HMC step: the only per-step host sync.
+
+Under a mesh (:mod:`gigalens_tpu_torch.parallel`) the (G, C) chain view is
+sharded along C: every rank holds all G groups and C / size chains of
+each, and draws its rows of the global momenta and uniforms. During the
+adaptation each step gathers every rank's chains (positions before and
+after, proposals, final momenta, acceptance probabilities: ``all_gather``
+of (G, C, 4d + 1) floats), and every rank runs the cross-chain statistics
+(ChEES's chain means and weighted sums, dual averaging's acceptance mean,
+the mass-adaptation moments) on them by the same operations, in the order
+one rank runs them. The step size, trajectory length and preconditioner
+are then the same on every rank, and so is the leapfrog count read back
+each step. After the burn-in no step crosses ranks; the acceptance history
+and the samples are gathered at the end. Not ported: the
 JAX package's program caches (``_hmc_programs``' ``lru_cache``,
 ``_cached_log_prob_fn``, ``clear_program_caches``) and ``aot_desc``, which
 exist because every TPU program is a remote compile; eager torch compiles
@@ -30,6 +43,8 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from gigalens_tpu_torch.parallel import mesh as pmesh
 
 
 class DualAveragingState(NamedTuple):
@@ -117,8 +132,10 @@ class HMCState(NamedTuple):
     div: torch.Tensor     # (n_chains,) int32 divergence counts
 
 
-def _init_state(log_prob_fn, z0, tril, step_size, num_leapfrog_steps):
-    """The state before step 0; ``tril`` is (G, d, d)."""
+def _init_state(log_prob_fn, z0, tril, step_size, num_leapfrog_steps, z_ref):
+    """The state before step 0 of the chains ``z0`` (this rank's, under a
+    mesh); ``tril`` is (G, d, d) and ``z_ref`` (G, d) the groups' mean
+    start over every rank's chains."""
     G, d = tril.shape[0], z0.shape[1]
     f32 = dict(dtype=torch.float32, device=z0.device)
     lp, grad = _lp_and_grad(log_prob_fn, z0)
@@ -127,22 +144,31 @@ def _init_state(log_prob_fn, z0, tril, step_size, num_leapfrog_steps):
         ChEESState(torch.full((G,), math.log(num_leapfrog_steps * step_size), **f32),
                    torch.zeros((G,), **f32), torch.zeros((G,), **f32)),
         tril, torch.zeros((G, d), **f32), torch.zeros((G, d, d), **f32),
-        torch.zeros((G,), **f32), torch.mean(z0.reshape(G, -1, d), dim=1),
+        torch.zeros((G,), **f32), z_ref,
         torch.zeros((z0.shape[0],), dtype=torch.int32, device=z0.device))
 
 
 def _hmc_step_fn(log_prob_fn, n_chains, d, n_groups, device, *, num_leapfrog_steps,
                  num_adaptation_steps, switch_ts, do_mass, chees, target_accept,
-                 max_leapfrog_steps, chees_lr):
-    """``step(state, t, h, eps_n, u) -> (state, mean_accept_prob, n_max)``:
-    one HMC step (the step body of the JAX package's ``_hmc_programs``) at
-    host step ``t`` with Halton jitter ``h``, momentum noise ``eps_n``
-    (n_chains, d) and acceptance uniforms ``u`` (n_chains,). ``n_max`` is
-    the number of leapfrog steps integrated."""
+                 max_leapfrog_steps, chees_lr, mesh=None, chains=None):
+    """``step(state, t, h, eps_n, u) -> (state, accept_sums, n_max)``: one
+    HMC step (the step body of the JAX package's ``_hmc_programs``) at host
+    step ``t`` with Halton jitter ``h``, momentum noise ``eps_n`` (n_chains,
+    d) and acceptance uniforms ``u`` (n_chains,), for this rank's
+    ``n_chains`` chains of ``mesh`` (all of them without one); ``chains``
+    is the global number a group. ``accept_sums`` (G,) are the sums of
+    this rank's acceptance probabilities a group, ``n_max`` the number of
+    leapfrog steps integrated."""
     G = n_groups
     C = n_chains // G
+    C_all = chains or C
     per_group = chees and G > 1
     eye = torch.eye(d, dtype=torch.float32, device=device)
+
+    def rows(fn, a):
+        """A per-chain product of (G, C, d) chains at every rank's chain
+        count (:func:`~gigalens_tpu_torch.parallel.mesh.at_global_rows`)."""
+        return pmesh.at_global_rows(fn, a, mesh, dim=1)
 
     def grp(a):  # (n, ...) -> (G, C, ...)
         return a.reshape(G, C, *a.shape[1:])
@@ -152,7 +178,8 @@ def _hmc_step_fn(log_prob_fn, n_chains, d, n_groups, device, *, num_leapfrog_ste
 
     def kinetic(p, tril):
         # 0.5 p^T Sigma p as |L^T p|^2 / 2; p (G, C, d), tril (G, d, d)
-        return 0.5 * torch.sum(torch.einsum("gcd,gdi->gci", p, tril) ** 2, dim=-1)
+        return 0.5 * torch.sum(rows(lambda a: torch.einsum("gcd,gdi->gci", a, tril), p) ** 2,
+                               dim=-1)
 
     def leapfrog(z, p, grad, eps, n_steps, n_max, m_inv):
         """z/p/grad (G, C, d); eps (G, 1, 1); n_steps (G,) under chees. Groups
@@ -160,7 +187,7 @@ def _hmc_step_fn(log_prob_fn, n_chains, d, n_groups, device, *, num_leapfrog_ste
         p = p + 0.5 * eps * grad
         lp, g = None, grad
         for i in range(n_max):
-            z_new = z + eps * torch.einsum("gcd,gde->gce", p, m_inv)
+            z_new = z + eps * rows(lambda a: torch.einsum("gcd,gde->gce", a, m_inv), p)
             if per_group:
                 live = (i < n_steps)[:, None, None]
                 z_new = torch.where(live, z_new, z)
@@ -193,6 +220,14 @@ def _hmc_step_fn(log_prob_fn, n_chains, d, n_groups, device, *, num_leapfrog_ste
         w = accept_prob_c
         return torch.sum(w * delta * proj, dim=1) / torch.clamp(torch.sum(w, dim=1), min=1e-6)
 
+    def all_chains(*tensors):
+        """Every rank's chains of each (G, C, k) tensor, (G, C_all, k), from
+        one gather (the tensors themselves on one rank)."""
+        sizes = [a.shape[-1] for a in tensors]
+        out = pmesh.gather_samples(torch.cat(tensors, dim=-1), mesh, dim=1)
+        # contiguous, so the statistics reduce them as one rank reduces its own
+        return [a.contiguous() for a in torch.split(out, sizes, dim=-1)]
+
     def step(s: HMCState, t: int, h: float, eps_n, u):
         da, ch, tril = s.da, s.ch, s.tril
         adapting = t < num_adaptation_steps
@@ -206,7 +241,7 @@ def _hmc_step_fn(log_prob_fn, n_chains, d, n_groups, device, *, num_leapfrog_ste
         else:
             n_steps = n_max = num_leapfrog_steps
 
-        p0 = torch.einsum("gcd,gdi->gci", grp(eps_n), inv_l)  # L^{-T} eps
+        p0 = rows(lambda a: torch.einsum("gcd,gdi->gci", a, inv_l), grp(eps_n))  # L^{-T} eps
         z_g, lp_g, grad_g = grp(s.z), grp(s.lp), grp(s.grad)
         z_new, p_new, lp_new, grad_new = leapfrog(
             z_g, p0, grad_g, eps[:, None, None], n_steps, n_max, m_inv)
@@ -216,42 +251,46 @@ def _hmc_step_fn(log_prob_fn, n_chains, d, n_groups, device, *, num_leapfrog_ste
         accept_prob_c = torch.clamp(torch.exp(log_accept), max=1.0)  # (G, C)
         accept = grp(torch.log(u)) < log_accept  # (G, C)
 
-        if chees and adapting:
-            g = chees_grad(z_g, z_new, p_new, accept_prob_c, m_inv)  # (G,)
-            b1, b2, eps_a = 0.9, 0.999, 1e-8
-            adam_m = b1 * ch.adam_m + (1 - b1) * g
-            adam_v = b2 * ch.adam_v + (1 - b2) * g**2
-            m_hat = adam_m / (1 - b1 ** (t + 1))
-            v_hat = adam_v / (1 - b2 ** (t + 1))
-            log_t = ch.log_t + chees_lr * m_hat / (torch.sqrt(v_hat) + eps_a)
-            # keep trajectories within [eps, max_leapfrog * eps]
-            log_t = torch.minimum(torch.maximum(log_t, torch.log(eps)),
-                                  torch.log(max_leapfrog_steps * eps))
-            ch = ChEESState(log_t, adam_m, adam_v)
-
         z = flat(torch.where(accept[..., None], z_new, z_g))
         lp = flat(torch.where(accept, lp_new, lp_g))
         grad = flat(torch.where(accept[..., None], grad_new, grad_g))
 
-        div = s.div
+        div, s1, s2, cnt, z_ref = s.div, s.s1, s.s2, s.cnt, s.z_ref
         if not adapting:
             # endpoint-energy divergences, post-adaptation: both signs count;
             # NaN energies arrive here as -inf
             div = div + (torch.abs(flat(log_accept)) > 25.0).to(torch.int32)
         else:
-            accept_prob = torch.mean(accept_prob_c, dim=1)  # (G,)
-            da = _da_update(da, t, accept_prob, target=target_accept)
+            # the adaptation's cross-chain statistics run on every rank's
+            # chains (one gather), by the same operations on every rank
+            # and in the same order as on one rank
+            z_a, zg_a, znew_a, pnew_a, acc_a = all_chains(
+                grp(z), z_g, z_new, p_new, accept_prob_c[..., None])
+            acc_a = acc_a[..., 0]
+            if chees:
+                g = chees_grad(zg_a, znew_a, pnew_a, acc_a, m_inv)  # (G,)
+                b1, b2, eps_a = 0.9, 0.999, 1e-8
+                adam_m = b1 * ch.adam_m + (1 - b1) * g
+                adam_v = b2 * ch.adam_v + (1 - b2) * g**2
+                m_hat = adam_m / (1 - b1 ** (t + 1))
+                v_hat = adam_v / (1 - b2 ** (t + 1))
+                log_t = ch.log_t + chees_lr * m_hat / (torch.sqrt(v_hat) + eps_a)
+                # keep trajectories within [eps, max_leapfrog * eps]
+                log_t = torch.minimum(torch.maximum(log_t, torch.log(eps)),
+                                      torch.log(max_leapfrog_steps * eps))
+                ch = ChEESState(log_t, adam_m, adam_v)
+            da = _da_update(da, t, torch.mean(acc_a, dim=1), target=target_accept)
 
-        s1, s2, cnt, z_ref = s.s1, s.s2, s.cnt, s.z_ref
-        if do_mass:
-            if t < switch_ts[-1]:
+            # mass windows lie inside the adaptation (switch_ts[-1] <
+            # num_adaptation_steps)
+            if do_mass and t < switch_ts[-1]:
                 # moments centred on the window-start chain mean: raw
                 # E[zz^T] - mm^T cancels catastrophically in float32
-                zc = grp(z) - z_ref[:, None]
+                zc = z_a - z_ref[:, None]
                 s1 = s1 + torch.sum(zc, dim=1)
                 s2 = s2 + torch.einsum("gcd,gce->gde", zc, zc)
-                cnt = cnt + C
-            if t in switch_ts:
+                cnt = cnt + C_all
+            if do_mass and t in switch_ts:
                 m = s1 / cnt[:, None]
                 cov_est = s2 / cnt[:, None, None] - torch.einsum("gd,ge->gde", m, m)
                 # shrink toward the current preconditioner's covariance
@@ -272,9 +311,9 @@ def _hmc_step_fn(log_prob_fn, n_chains, d, n_groups, device, *, num_leapfrog_ste
                                 torch.zeros_like(eps_cur), torch.zeros_like(eps_cur))
                 da = _da_init(eps_cur, t_start=t)
                 s1, s2, cnt = torch.zeros_like(s1), torch.zeros_like(s2), torch.zeros_like(cnt)
-                z_ref = torch.mean(grp(z), dim=1)
+                z_ref = torch.mean(z_a, dim=1)
         state = HMCState(z, lp, grad, da, ch, tril, s1, s2, cnt, z_ref, div)
-        return state, torch.mean(accept_prob_c), n_max
+        return state, torch.sum(accept_prob_c, dim=1), n_max
 
     return step
 
@@ -299,10 +338,15 @@ def sample_hmc(
     segment_steps: int = 0,
     progress=None,
     n_groups: int = 1,
+    mesh=None,
 ):
     """Batched preconditioned HMC. ``z0``: (n_chains, d); ``log_prob_fn``
     maps (n_chains, d) -> (n_chains,). Draws come from ``generator`` (on
     ``z0``'s device).
+
+    ``mesh`` shards each group's chains over its ranks: ``z0`` and the
+    draws are global, ``log_prob_fn`` scores one rank's (n_chains / size,
+    d) share, and every rank returns the global result.
 
     ``n_groups > 1`` runs G independent adaptations over group-major chains:
     pass a per-group ``momentum_covariance_tril`` (G, d, d) (a single (d, d)
@@ -346,12 +390,15 @@ def sample_hmc(
     elif tril.shape[0] != G:
         raise ValueError(f"per-group tril has leading dim {tril.shape[0]}, expected {G}")
 
+    chains = n_chains // G
+    z_loc = pmesh.shard_samples(z0, mesh, G)
     step = _hmc_step_fn(
-        log_prob_fn, n_chains, d, G, device, num_leapfrog_steps=num_leapfrog_steps,
+        log_prob_fn, z_loc.shape[0], d, G, device, num_leapfrog_steps=num_leapfrog_steps,
         num_adaptation_steps=num_adaptation_steps, switch_ts=switch_ts, do_mass=do_mass,
         chees=chees, target_accept=target_accept, max_leapfrog_steps=max_leapfrog_steps,
-        chees_lr=chees_lr)
-    state = _init_state(log_prob_fn, z0, tril.contiguous(), step_size, num_leapfrog_steps)
+        chees_lr=chees_lr, mesh=mesh, chains=chains)
+    state = _init_state(log_prob_fn, z_loc, tril.contiguous(), step_size, num_leapfrog_steps,
+                        torch.mean(z0.reshape(G, chains, d), dim=1))
     halton = _halton(total_steps) if chees else np.ones(total_steps, np.float32)
     nlf = 0
     zs, accs = [], []
@@ -359,22 +406,28 @@ def sample_hmc(
     for t in range(total_steps):
         eps_n = torch.randn((n_chains, d), generator=generator, **f32)
         u = torch.clamp(torch.rand((n_chains,), generator=generator, **f32), min=1e-10)
-        state, acc, n_max = step(state, t, float(halton[t]), eps_n, u)
+        state, acc, n_max = step(state, t, float(halton[t]),
+                                 pmesh.shard_samples(eps_n, mesh, G),
+                                 pmesh.shard_samples(u, mesh, G))
         nlf += n_max
         zs.append(state.z)
         accs.append(acc)
         done = t + 1
         if progress is not None and (done % n_seg == 0 or done == total_steps):
-            seg = accs[(done - 1) // n_seg * n_seg:]
-            progress(done, float(torch.mean(torch.stack(seg))))
+            seg = pmesh.all_sum(mesh, torch.stack(accs[(done - 1) // n_seg * n_seg:]))
+            progress(done, float(torch.mean(seg / chains)))
 
-    z, da, ch = state.z, state.da, state.ch
-    samples = torch.stack(zs[num_burnin_steps:]) if num_results else z.new_zeros((0, n_chains, d))
+    da, ch = state.da, state.ch
+    z = pmesh.gather_samples(state.z, mesh, G)
+    samples = (pmesh.gather_samples(torch.stack(zs[num_burnin_steps:]), mesh, G, dim=1)
+               if num_results else z.new_zeros((0, n_chains, d)))
+    accept_rate = torch.mean(pmesh.all_sum(mesh, torch.stack(accs)) / chains, dim=1)
     final_eps = torch.exp(da.log_eps_bar)
     final_t = torch.exp(ch.log_t) if chees else num_leapfrog_steps * final_eps
     if G == 1:  # the scalar API of the single-fit path
         final_eps, final_t = final_eps[0], final_t[0]
-    return HMCResult(samples, torch.stack(accs), final_eps, z, final_t, state.div, nlf)
+    return HMCResult(samples, accept_rate, final_eps, z, final_t,
+                     pmesh.gather_samples(state.div, mesh, G), nlf)
 
 
 def fit_hmc(
@@ -394,6 +447,7 @@ def fit_hmc(
     seeds=None,
     segment_steps: int = 0,
     progress=None,
+    mesh=None,
 ):
     """VI-preconditioned posterior sampling. ``q_z`` (a
     :class:`~gigalens_tpu_torch.prob.distributions.MultivariateNormalTriL`)
@@ -406,7 +460,9 @@ def fit_hmc(
     is seed ``seeds[g]``'s posterior. Each seed's start cloud is drawn from
     a ``torch.Generator`` seeded with it on the simulator's device; the
     chain then continues the first seed's generator. Returns
-    :class:`HMCResult`.
+    :class:`HMCResult`. ``mesh`` shards each group's chains over its ranks
+    (``simulator`` at one rank's share); every rank returns the global
+    result.
     """
     if seeds is not None and len(seeds) > 1:
         n_groups = len(seeds)
@@ -442,4 +498,5 @@ def fit_hmc(
         segment_steps=segment_steps,
         progress=progress,
         n_groups=n_groups,
+        mesh=mesh,
     )

@@ -5,6 +5,10 @@ The MAP step is a plain Python loop on the device: loss = ``-mean(lp) /
 event_size`` (the reference's convention), autograd, then the optimizer
 update. The per-step minimum reduced chi2 stays on the device; the loop
 waits for the card only where a ``progress`` callback asks for a value.
+Under a mesh (:mod:`gigalens_tpu_torch.parallel`) each rank steps its shard
+of the starts: the loss is the shard's sum over the global count, so every
+row's gradient (and, Adam being elementwise, its update) is the one a
+single rank computes; the chi2 minima cross the ranks once a segment.
 
 ``laplace_scale_tril`` takes the Hessian of the unconstrained log posterior
 at the MAP point, by central differences of one batched gradient
@@ -17,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from gigalens_tpu_torch.inference.optim import GradientTransformation
+from gigalens_tpu_torch.parallel import mesh as pmesh
 
 
 def _nanmin(x):
@@ -33,6 +38,8 @@ def fit_map(
     seed: int = 0,
     segment_steps: int = 0,
     progress=None,
+    mesh=None,
+    n_groups: int = 1,
 ):
     """Runs multi-start Adam; returns (z, chi2_history).
 
@@ -45,6 +52,10 @@ def fit_map(
     ``progress``, if given, is called after every segment of
     ``segment_steps`` steps (all of them when 0) with ``(steps_done,
     min_reduced_chi2_of_the_segment)``.
+
+    ``mesh`` shards the ``n_samples`` rows (seen as ``n_groups`` groups,
+    e.g. a survey's scenes) over its ranks; ``simulator`` is then built at
+    one rank's share, and every rank returns the global ``z``.
     """
     event_size = float(prob_model.event_size(simulator))
     if start is None:
@@ -53,7 +64,8 @@ def fit_map(
         z = prior.unconstrain(prior.sample(gen, n_samples))
     else:
         z = torch.as_tensor(start, dtype=torch.float32, device=simulator.device)
-    z = z.detach().clone()
+    n_global = z.shape[0]
+    z = pmesh.shard_samples(z.detach(), mesh, n_groups).clone()
     n_seg = segment_steps if segment_steps > 0 else max(num_steps, 1)
 
     state = optimizer.init(z)
@@ -61,7 +73,7 @@ def fit_map(
     for step in range(num_steps):
         z.requires_grad_(True)
         lp, chisq = prob_model.log_prob(simulator, z)
-        loss = -torch.mean(lp) / event_size
+        loss = -torch.sum(lp) / n_global / event_size
         (grad,) = torch.autograd.grad(loss, z)
         with torch.no_grad():
             updates, state = optimizer.update(grad, state, z)
@@ -70,14 +82,20 @@ def fit_map(
         done = step + 1
         if progress is not None and (done % n_seg == 0 or done == num_steps):
             seg = hist[(done - 1) // n_seg * n_seg:]
-            progress(done, float(_nanmin(torch.stack(seg))))
-    return z, torch.stack(hist) if hist else torch.empty(0, device=z.device)
+            progress(done, float(pmesh.all_min(mesh, _nanmin(torch.stack(seg)))))
+    z = pmesh.gather_samples(z, mesh, n_groups)
+    if not hist:
+        return z, torch.empty(0, device=z.device)
+    return z, pmesh.all_min(mesh, torch.stack(hist))
 
 
 @torch.no_grad()
-def best_start(prob_model, simulator, z):
-    """Selects the highest-posterior sample; returns it shaped (1, d)."""
-    lp, _ = prob_model.log_prob(simulator, z)
+def best_start(prob_model, simulator, z, mesh=None):
+    """Selects the highest-posterior sample of ``z``; returns it shaped (1,
+    d). Under ``mesh`` each rank scores its shard (``simulator`` at one
+    rank's share) and the log-posteriors are gathered."""
+    lp, _ = prob_model.log_prob(simulator, pmesh.shard_samples(z, mesh))
+    lp = pmesh.gather_samples(lp, mesh)
     # diverged starts carry NaN log-posteriors; argmax would pick a NaN
     lp = torch.where(torch.isnan(lp), -torch.inf, lp)
     return z[torch.argmax(lp)][None, :]

@@ -9,6 +9,15 @@ on the sequence's device, which is the CUDA card unless the caller names
 another (``device="cpu"``). ``fit(checkpoint_dir=...)`` saves each phase's
 result and skips the phases already saved on a rerun
 (:class:`~gigalens_tpu_torch.utils.checkpoint.PipelineCheckpointer`).
+
+``mesh`` (:mod:`gigalens_tpu_torch.parallel`; default: the world group
+when ``torch.distributed`` is initialized, else one rank) shards every
+phase's samples over its ranks, one process a device: the batch counts
+are rounded to multiples of the mesh size as the JAX package rounds them,
+each phase simulator is built at one rank's share, and every phase
+returns the global result on every rank, so the caller's code is the same
+for one rank and many (the numbers agree with one process's to float32
+rounding; :mod:`gigalens_tpu_torch.parallel.mesh` says where bitwise).
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ from gigalens_tpu_torch.inference.smc import fit_smc
 from gigalens_tpu_torch.inference.optim import GradientTransformation
 from gigalens_tpu_torch.inference.svi import fit_svi
 from gigalens_tpu_torch.model import resolve_device
+from gigalens_tpu_torch.parallel import mesh as pmesh
 from gigalens_tpu_torch.simulator import LensSimulator
 from gigalens_tpu_torch.utils.checkpoint import PipelineCheckpointer
 from gigalens_tpu_torch.utils.summary import summarize_posterior
@@ -69,18 +79,39 @@ def svi_optimizer(num_steps: int, lr: float = 3e-3) -> GradientTransformation:
         optim.polynomial_schedule(-1e-6, -lr, 2, max(num_steps // 5, 1))))
 
 
+def mesh_and_device(mesh, device):
+    """A sequence's (mesh, device): ``mesh`` defaults to
+    :func:`~gigalens_tpu_torch.parallel.default_mesh` on ``device``, and
+    ``device`` to the mesh's."""
+    if mesh is None:
+        mesh = pmesh.default_mesh(device)
+    if device is None:
+        return mesh, mesh.device
+    device = resolve_device(device)
+    # "cuda" names the current card, so an unindexed device matches any index
+    indices = (device.index, mesh.device.index)
+    if device.type != mesh.device.type or None not in indices and indices[0] != indices[1]:
+        raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+    return mesh, device
+
+
 class ModellingSequence:
-    def __init__(self, phys_model, prob_model, sim_config, device=None):
+    def __init__(self, phys_model, prob_model, sim_config, mesh=None, device=None):
         self.phys_model = phys_model
         self.prob_model = prob_model
         self.sim_config = sim_config
-        self.device = resolve_device(device)
+        self.mesh, self.device = mesh_and_device(mesh, device)
         self._sims = {}
 
     def _sim(self, bs: int, exact: bool = False) -> LensSimulator:
-        """See :func:`phase_simulator` for the exact/fast PSF-path policy."""
+        """The phase simulator for a global batch of ``bs`` (built at one
+        rank's share); see :func:`phase_simulator` for the exact/fast
+        PSF-path policy."""
         return phase_simulator(self._sims, self.sim_config, self.phys_model,
-                               bs, exact, self.device)
+                               bs // self.mesh.size, exact, self.device)
+
+    def _round(self, n: int, what: str) -> int:
+        return pmesh.round_to_multiple(n, self.mesh.size, what)
 
     def MAP(
         self,
@@ -93,17 +124,17 @@ class ModellingSequence:
         progress=None,
     ):
         """Multi-start MAP; returns the (n_samples, d) final z."""
-        sim = self._sim(n_samples)
+        n_samples = self._round(n_samples, "n_samples")
         z, _ = fit_map(
-            self.prob_model, sim, optimizer, start=start, n_samples=n_samples,
-            num_steps=num_steps, seed=seed, segment_steps=segment_steps,
-            progress=progress,
+            self.prob_model, self._sim(n_samples), optimizer, start=start,
+            n_samples=n_samples, num_steps=num_steps, seed=seed,
+            segment_steps=segment_steps, progress=progress, mesh=self.mesh,
         )
         return z
 
     def best_map_start(self, z):
         """Highest-posterior MAP sample, shaped (1, d)."""
-        return best_start(self.prob_model, self._sim(z.shape[0]), z)
+        return best_start(self.prob_model, self._sim(z.shape[0]), z, mesh=self.mesh)
 
     def summarize(self, res):
         """Named physical-space posterior summary of an :class:`HMCResult`
@@ -116,12 +147,13 @@ class ModellingSequence:
         array: the recommended ``init_scales`` for SVI. ``method="fd"``
         (central differences of one batched gradient, bs = 2d) or
         ``"exact"`` (double backward, bs = 1). Both run on the unfused
-        render with the FFT conv, on the sequence's device."""
+        render with the FFT conv, on the sequence's device (under a mesh, on
+        every rank, and rank 0's factor is the result)."""
         cfg = dataclasses.replace(self.sim_config, use_fused_render=False, psf_mode="fft")
         bs = 2 * torch.as_tensor(z_best).numel() if method == "fd" else 1
         sim = LensSimulator(self.phys_model, cfg, bs=bs, device=self.device)
         L = laplace_scale_tril(self.prob_model, sim, z_best, method=method)
-        return L.cpu().numpy()
+        return pmesh.replicate(L, self.mesh).cpu().numpy()
 
     def SVI(
         self,
@@ -137,10 +169,12 @@ class ModellingSequence:
     ):
         """Full-rank (or mean-field) SVI on the fast simulator; returns
         ``(q_z, losses)``."""
+        n_vi = self._round(n_vi, "n_vi")
         return fit_svi(
             self.prob_model, self._sim(n_vi), start, optimizer, n_vi=n_vi,
             init_scales=init_scales, num_steps=num_steps, seed=seed,
             segment_steps=segment_steps, full_rank=full_rank, progress=progress,
+            mesh=self.mesh,
         )
 
     def HMC(
@@ -161,6 +195,7 @@ class ModellingSequence:
     ):
         """Preconditioned HMC on the exact simulator; ``seeds`` (a sequence)
         runs one independently adapted group of ``n_hmc`` chains per seed."""
+        n_hmc = self._round(n_hmc, "n_hmc chains")
         n_total = n_hmc * (len(seeds) if seeds is not None and len(seeds) > 1 else 1)
         return fit_hmc(
             self.prob_model, self._sim(n_total, exact=True), q_z,
@@ -169,7 +204,7 @@ class ModellingSequence:
             max_leapfrog_steps=max_leapfrog_steps,
             trajectory_adaptation=trajectory_adaptation,
             mass_adaptation=mass_adaptation, seed=seed, seeds=seeds,
-            segment_steps=segment_steps, progress=progress,
+            segment_steps=segment_steps, progress=progress, mesh=self.mesh,
         )
 
     def SMC(
@@ -191,6 +226,7 @@ class ModellingSequence:
     ):
         """Adaptive-tempering SMC on the exact simulator at bs = P * E;
         returns an :class:`~gigalens_tpu_torch.inference.smc.SMCResult`."""
+        num_particles = self._round(num_particles, "num_particles")
         sim = self._sim(num_particles * num_ensembles, exact=True)
         return fit_smc(
             self.prob_model, sim, start=start, num_particles=num_particles,
@@ -199,7 +235,7 @@ class ModellingSequence:
             ess_threshold_ratio=ess_threshold_ratio,
             max_sampling_per_stage=max_sampling_per_stage, max_stage=max_stage,
             target=target, auxiliar=auxiliar, precondition_moves=precondition_moves,
-            seed=seed, segment_stages=segment_stages, progress=progress,
+            seed=seed, segment_stages=segment_stages, progress=progress, mesh=self.mesh,
         )
 
     def fit(
@@ -232,7 +268,7 @@ class ModellingSequence:
         """
         ckpt = None
         if checkpoint_dir is not None:
-            ckpt = PipelineCheckpointer(checkpoint_dir, device=self.device)
+            ckpt = PipelineCheckpointer(checkpoint_dir, device=self.device, mesh=self.mesh)
 
         def _progress(phase):
             if progress is None:

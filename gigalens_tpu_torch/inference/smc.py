@@ -23,8 +23,19 @@ beta and the next stage's move count, which sizes the Python move loop)
 and none a move. ``segment_stages`` only paces ``progress``. Every random
 draw comes from one :class:`Draws` object, so a test can hand the sampler
 the JAX package's arrays in place of the generator's (torch cannot
-reproduce JAX's streams). Not ported: sample sharding over a mesh (ROADMAP
-M20) and ``aot_desc``, which exists for the TPU's remote compiles.
+reproduce JAX's streams). Not ported: ``aot_desc``, which exists for the
+TPU's remote compiles.
+
+Under a mesh (:mod:`gigalens_tpu_torch.parallel`) each rank holds P / size
+particles of every ensemble and evaluates and moves only those. A stage
+starts with one ``all_gather`` of the particles with their cached parts,
+gradients and scalings (a few hundred KB at 1000 particles): every rank
+then runs the temperature bisection, the evidence increment, the
+systematic resampling and the move preconditioner on the global cloud by
+the same operations, and takes its rows of the resampled particles. The
+stage's acceptances are gathered for the step-size tuning, and the
+stage's host read comes out of those two gathers, the same on every rank
+and computed in the order one rank computes it.
 
 Degeneracy caveat, as in the JAX package: with ``auxiliar="positions"``,
 prior draws near a critical curve carry position log-likelihoods of order
@@ -42,6 +53,7 @@ from typing import NamedTuple
 import torch
 
 from gigalens_tpu_torch.model import resolve_device
+from gigalens_tpu_torch.parallel import mesh as pmesh
 
 
 class SMCResult(NamedTuple):
@@ -131,6 +143,20 @@ def _select(accept, new: _Particles, old: _Particles) -> _Particles:
 def _gather(idx, a):
     """a[idx[p, e], e] for a (P, E, ...) tensor and (P, E) indices."""
     return a[idx, torch.arange(a.shape[1], device=a.device)[None, :]]
+
+
+def _pack(part: _Particles, log_scalings):
+    """The particles, their parts, gradients and scalings as one (P, E, 4d
+    + 4) tensor, the layout :func:`_unpack` reads."""
+    cols = [a if a.ndim == 3 else a[..., None] for a in (*part, log_scalings)]
+    return torch.cat(cols, dim=-1)
+
+
+def _unpack(packed, d):
+    z, like, aux, lp, g_like, g_aux, g_lp, log_scalings = torch.split(
+        packed, [d, 1, 1, 1, d, d, d, 1], dim=-1)
+    return (_Particles(z, like[..., 0], aux[..., 0], lp[..., 0], g_like, g_aux, g_lp),
+            log_scalings[..., 0])
 
 
 def _part_fns(prob_model, simulator, target, auxiliar):
@@ -223,13 +249,18 @@ def fit_smc(
     the CUDA card, raising without one). ``draws`` is the source of every
     random draw (default: :class:`Draws` over a generator seeded with
     ``seed`` on the device). ``progress(stage, min_beta)`` is called every
-    ``segment_stages`` stages (0: once, when the tempering ends)."""
-    if mesh is not None:
-        raise NotImplementedError("SMC sample sharding over a mesh is not ported yet "
-                                  "(ROADMAP M20)")
+    ``segment_stages`` stages (0: once, when the tempering ends).
+
+    ``mesh`` shards each ensemble's particles over its ranks: the start and
+    the draws are global, ``simulator`` (and a callable target) score one
+    rank's (P / size) * E rows, and every rank returns the global result."""
     device = resolve_device(device if device is not None else getattr(simulator, "device", None))
     P, E = num_particles, num_ensembles
     n = P * E
+    size, rank = (mesh.size, mesh.rank) if mesh is not None else (1, 0)
+    if P % size:
+        raise ValueError(f"{P} particles do not shard over {size} ranks")
+    rows = slice(rank * (P // size), (rank + 1) * (P // size))  # this rank's particles
     prior = prob_model.prior
     d = prior.d
     f32 = dict(dtype=torch.float32, device=device)
@@ -253,7 +284,7 @@ def fit_smc(
                 # moves re-diversify them
                 replace = start.shape[0] < n
                 z0 = start[draws.start_indices(start.shape[0], (P, E), replace)]
-    z0 = z0.to(**f32)
+    z0 = pmesh.shard_samples(z0.to(**f32), mesh)
 
     eval_particles = functools.partial(
         _eval_particles, prior, *_part_fns(prob_model, simulator, target, auxiliar))
@@ -303,7 +334,8 @@ def fit_smc(
 
     def hmc_move(part: _Particles, beta, log_scalings, tril, eps_n, u):
         """One HMC step a particle at the tempered target, from momentum
-        normals ``eps_n`` (P, E, d) and acceptance uniforms ``u`` (P, E).
+        normals ``eps_n`` (P, E, d) and acceptance uniforms ``u`` (P, E),
+        this rank's rows of each.
         ``tril`` (E, d, d): momentum ~ N(0, Sigma^-1), drift eps * Sigma p;
         None: identity mass. The leading gradient comes from the cached
         parts, and the proposal's parts are accept-selected into them."""
@@ -315,9 +347,14 @@ def fit_smc(
             m = tril @ tril.transpose(-1, -2)  # Sigma (E, d, d)
             inv_l = torch.linalg.solve_triangular(
                 tril, torch.eye(d, **f32).expand(tril.shape), upper=False)
-            drift = lambda p: torch.einsum("ped,edf->pef", p, m)  # noqa: E731
-            kinetic_t = lambda p: torch.einsum("ped,edi->pei", p, tril)  # noqa: E731
-            p0 = torch.einsum("ped,edi->pei", eps_n, inv_l)
+            # per-particle products at every rank's particle count, so each
+            # rounds as on one rank (parallel.mesh.at_global_rows)
+            drift = lambda p: pmesh.at_global_rows(  # noqa: E731
+                lambda a: torch.einsum("ped,edf->pef", a, m), p, mesh)
+            kinetic_t = lambda p: pmesh.at_global_rows(  # noqa: E731
+                lambda a: torch.einsum("ped,edi->pei", a, tril), p, mesh)
+            p0 = pmesh.at_global_rows(
+                lambda a: torch.einsum("ped,edi->pei", a, inv_l), eps_n, mesh)
 
         lp_val = tempered_of(part, beta)
         p = p0 + 0.5 * eps * grad_of(part, beta)
@@ -344,13 +381,17 @@ def fit_smc(
     with torch.no_grad():
         part = eval_particles(z0)
         beta = torch.zeros((E,), **f32)
-        log_scalings = torch.full((P, E), init_log_scaling, **f32)
+        log_scalings = torch.full((P // size, E), init_log_scaling, **f32)
         log_z = torch.zeros((E,), **f32)
         log_p = torch.log(torch.tensor(float(P), **f32))
         num_steps, stage, min_beta, num_moves = max_sampling_per_stage, 0, 0.0, 0
         while min_beta < 1.0 and stage < max_stage:
             u_res = draws.resample_uniforms(E)
-            incr = part.like - part.aux  # cached: no re-evaluation
+            # every rank's particles with their cached parts, gradients
+            # and scalings: the stage's schedule and resampling run on the
+            # global cloud, identically on every rank
+            cloud, scalings = _unpack(pmesh.gather_samples(_pack(part, log_scalings), mesh), d)
+            incr = cloud.like - cloud.aux  # cached: no re-evaluation
             delta = find_delta(incr, beta)
             beta_new = torch.clamp(beta + delta, max=1.0)
             logw = (beta_new - beta)[None, :] * incr  # (P, E)
@@ -362,20 +403,21 @@ def fit_smc(
             # systematic resampling per ensemble; the cached parts and
             # gradients ride the same gather as the positions
             idx = _systematic_resample(u_res, logw)
-            part = _Particles(*(_gather(idx, a) for a in part))
-            log_scalings = _gather(idx, log_scalings)
+            part = _Particles(*(_gather(idx[rows], a) for a in cloud))
+            log_scalings = _gather(idx[rows], scalings)
 
             # the mass is fixed for the stage, from the resampled cloud
-            tril = move_tril(part.z) if precondition_moves else None
-            acc_sum = torch.zeros((P, E), **f32)
+            tril = move_tril(_gather(idx, cloud.z)) if precondition_moves else None
+            acc_sum = torch.zeros((P // size, E), **f32)
             for _ in range(num_steps):
                 eps_n, u = draws.move(shape)
-                part, acc = hmc_move(part, beta_new, log_scalings, tril, eps_n, u)
+                part, acc = hmc_move(part, beta_new, log_scalings, tril, eps_n[rows], u[rows])
                 acc_sum = acc_sum + acc
             num_moves += num_steps
-            avg_accept = acc_sum / float(num_steps)
 
-            # heuristic tuning (TFP's simple_heuristic_tuning)
+            # heuristic tuning (TFP's simple_heuristic_tuning) on every
+            # rank's acceptances, as one rank tunes
+            avg_accept = pmesh.gather_samples(acc_sum, mesh) / float(num_steps)
             mean_accept = torch.mean(avg_accept, dim=0, keepdim=True)  # (1, E)
             log_scalings = torch.clamp(log_scalings + (mean_accept - optimal_accept),
                                        -10.0, 2.0)
@@ -395,14 +437,16 @@ def fit_smc(
             # a separate sample stream at beta = 1 with the tuned scalings and
             # a fixed mass from the final cloud; the particles stay the
             # tempering output
-            tril = move_tril(part.z) if precondition_moves else None
+            tril = move_tril(pmesh.gather_samples(part.z, mesh)) if precondition_moves else None
             ones = torch.ones((E,), **f32)
             prt, post = part, []
             for _ in range(post_sampling_steps):
                 eps_n, u = draws.post_move(shape)
-                prt, _ = hmc_move(prt, ones, log_scalings, tril, eps_n, u)
-                post.append(prt.z.reshape(n, d))
-            post = torch.stack(post)
+                prt, _ = hmc_move(prt, ones, log_scalings, tril, eps_n[rows], u[rows])
+                post.append(prt.z)
+            post = pmesh.gather_samples(torch.stack(post), mesh, dim=1).reshape(-1, n, d)
         else:
             post = torch.zeros((0, n, d), **f32)
-    return SMCResult(part.z, stage, log_scalings, post, beta, log_z, num_moves, tempering_s)
+    return SMCResult(pmesh.gather_samples(part.z, mesh), stage,
+                     pmesh.gather_samples(log_scalings, mesh), post, beta, log_z, num_moves,
+                     tempering_s)

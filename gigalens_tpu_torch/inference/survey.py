@@ -15,8 +15,13 @@ single batches (port of :mod:`gigalens_tpu.inference.survey`).
 Phase simulators come from :func:`phase_simulator`: MAP and SVI take the
 fast path (on the card the dft conv, one K4 launch a scene), HMC and SMC
 the exact path (the FFT conv). Every phase runs on the sequence's device,
-the CUDA card unless the caller names another. Sample sharding over a
-mesh is not ported yet (ROADMAP M20): ``mesh`` other than None raises.
+the CUDA card unless the caller names another. Under a ``mesh``
+(:mod:`gigalens_tpu_torch.parallel`, default as for
+:class:`~gigalens_tpu_torch.inference.ModellingSequence`) the scene-major
+batch shards like HMC's chain groups: every rank holds every scene and
+its share of each scene's starts, draws, chains or particles (the
+per-scene counts are rounded to multiples of the mesh size), so a rank's
+batch is itself scene-major; every phase returns the global result.
 """
 from __future__ import annotations
 
@@ -29,12 +34,13 @@ from gigalens_tpu_torch.interop import _map_tree
 from gigalens_tpu_torch.inference.hmc import HMCResult, sample_hmc
 from gigalens_tpu_torch.inference.map import fit_map, laplace_scale_trils_survey
 from gigalens_tpu_torch.inference.optim import GradientTransformation
-from gigalens_tpu_torch.inference.sequence import map_optimizer, phase_simulator, svi_optimizer
+from gigalens_tpu_torch.inference.sequence import (
+    map_optimizer, mesh_and_device, phase_simulator, svi_optimizer,
+)
 from gigalens_tpu_torch.inference.smc import Draws, SMCResult, fit_smc
 from gigalens_tpu_torch.inference.svi import fit_svi_survey
-from gigalens_tpu_torch.model import (
-    SurveyBackwardProbModel, SurveyForwardProbModel, resolve_device,
-)
+from gigalens_tpu_torch.model import SurveyBackwardProbModel, SurveyForwardProbModel
+from gigalens_tpu_torch.parallel import mesh as pmesh
 from gigalens_tpu_torch.simulator import LensSimulator
 from gigalens_tpu_torch.utils.summary import summarize_posterior
 
@@ -86,36 +92,41 @@ class SurveySequence:
         if not isinstance(prob_model, (SurveyForwardProbModel, SurveyBackwardProbModel)):
             raise TypeError("SurveySequence requires a SurveyForwardProbModel or "
                             "SurveyBackwardProbModel")
-        if mesh is not None:
-            raise NotImplementedError("survey sample sharding over a mesh is not ported yet "
-                                      "(ROADMAP M20)")
         self.phys_model = phys_model
         self.prob_model = prob_model
         self.sim_config = sim_config
-        self.device = resolve_device(device)
+        self.mesh, self.device = mesh_and_device(mesh, device)
         self.n_scenes = prob_model.n_scenes
         self._sims = {}
 
     def _sim(self, bs: int, exact: bool = False) -> LensSimulator:
-        """See :func:`phase_simulator` for the exact/fast PSF-path policy."""
-        return phase_simulator(self._sims, self.sim_config, self.phys_model, bs, exact,
-                               self.device)
+        """The phase simulator for a global batch of ``bs`` (built at one
+        rank's share); see :func:`phase_simulator` for the exact/fast
+        PSF-path policy."""
+        return phase_simulator(self._sims, self.sim_config, self.phys_model,
+                               bs // self.mesh.size, exact, self.device)
+
+    def _per_scene(self, k: int, what: str) -> int:
+        """Rounds a per-scene count so every scene's rows divide the mesh."""
+        return pmesh.round_to_multiple(k, self.mesh.size, what)
 
     def MAP(self, optimizer: GradientTransformation, n_starts: int = 32, num_steps: int = 350,
             seed: int = 0, segment_steps: int = 0, progress=None):
         """Multi-start MAP with ``n_starts`` prior draws a scene; returns the
         (S * n_starts, d) scene-major unconstrained parameters."""
-        n = self.n_scenes * n_starts
+        n = self.n_scenes * self._per_scene(n_starts, "n_starts")
         z, _ = fit_map(self.prob_model, self._sim(n), optimizer, n_samples=n,
                        num_steps=num_steps, seed=seed, segment_steps=segment_steps,
-                       progress=progress)
+                       progress=progress, mesh=self.mesh, n_groups=self.n_scenes)
         return z
 
     @torch.no_grad()
     def best_per_scene(self, z):
         """The highest-posterior start of each scene, (S, d)."""
         S = self.n_scenes
-        lp, _ = self.prob_model.log_prob(self._sim(z.shape[0]), z)
+        lp, _ = self.prob_model.log_prob(self._sim(z.shape[0]),
+                                         pmesh.shard_samples(z, self.mesh, S))
+        lp = pmesh.gather_samples(lp, self.mesh, S)
         # diverged starts carry NaN log-posteriors; argmax would pick a NaN
         lp = torch.where(torch.isnan(lp), -torch.inf, lp).reshape(S, -1)
         return z.reshape(S, lp.shape[1], -1)[torch.arange(S, device=z.device),
@@ -125,11 +136,13 @@ class SurveySequence:
         """Per-scene Laplace factors at the per-scene MAP points, as a numpy
         (S, d, d) array: the recommended ``init_scales`` for :meth:`SVI`.
         One FD gradient batch of S * 2d rows on the unfused render with the
-        FFT conv, on the sequence's device."""
+        FFT conv, on the sequence's device (under a mesh, on every rank, and
+        rank 0's factors are the result)."""
         cfg = dataclasses.replace(self.sim_config, use_fused_render=False, psf_mode="fft")
         d = torch.as_tensor(z_best).shape[-1]
         sim = LensSimulator(self.phys_model, cfg, bs=self.n_scenes * 2 * d, device=self.device)
-        return laplace_scale_trils_survey(self.prob_model, sim, z_best).cpu().numpy()
+        trils = laplace_scale_trils_survey(self.prob_model, sim, z_best)
+        return pmesh.replicate(trils, self.mesh).cpu().numpy()
 
     def SVI(self, starts, optimizer: GradientTransformation, n_vi: int = 64, init_scales=1e-3,
             num_steps: int = 300, seed: int = 0, segment_steps: int = 0, full_rank: bool = True,
@@ -137,9 +150,10 @@ class SurveySequence:
         """Per-scene surrogates from ``starts`` (S, d) (e.g.
         :meth:`best_per_scene`); returns ``(means (S, d), trils (S, d, d),
         losses (num_steps, S))``."""
+        n_vi = self._per_scene(n_vi, "n_vi")
         return fit_svi_survey(
             self.prob_model, self._sim(self.n_scenes * n_vi), starts, optimizer, n_vi=n_vi,
-            init_scales=init_scales, num_steps=num_steps, seed=seed,
+            init_scales=init_scales, num_steps=num_steps, seed=seed, mesh=self.mesh,
             segment_steps=segment_steps, full_rank=full_rank, progress=progress)
 
     def HMC(self, q_means, q_trils, init_eps: float = 0.3, init_l: int = 3, n_hmc: int = 16,
@@ -155,6 +169,7 @@ class SurveySequence:
         :meth:`scene_samples`); ``step_size`` and ``trajectory_length`` are
         (S,)."""
         S = self.n_scenes
+        n_hmc = self._per_scene(n_hmc, "n_hmc chains")
         sim = self._sim(S * n_hmc, exact=True)
         f32 = dict(dtype=torch.float32, device=self.device)
         q_means = torch.as_tensor(q_means, **f32)
@@ -173,7 +188,7 @@ class SurveySequence:
             num_results=num_results, momentum_covariance_tril=q_trils,
             trajectory_adaptation=trajectory_adaptation, max_leapfrog_steps=max_leapfrog_steps,
             mass_adaptation=mass_adaptation, segment_steps=segment_steps, progress=progress,
-            n_groups=S)
+            n_groups=S, mesh=self.mesh)
 
     def SMC(self, start=None, num_particles: int = 500, num_leapfrog_steps: int = 10,
             post_sampling_steps: int = 100, ess_threshold_ratio: float = 0.8,
@@ -191,7 +206,7 @@ class SurveySequence:
         reaches beta = 1. The default ``target`` follows the data:
         "pixels+positions" with positions, else "pixels"; the auxiliary
         term is off."""
-        S, P = self.n_scenes, num_particles
+        S, P = self.n_scenes, self._per_scene(num_particles, "num_particles")
         sim = self._sim(P * S, exact=True)
         draws = Draws(torch.Generator(device=self.device).manual_seed(seed))
         if start is not None:
@@ -204,7 +219,9 @@ class SurveySequence:
         if target is None:
             target = "pixels+positions" if self.prob_model.include_positions else "pixels"
         res = fit_smc(
-            _SceneEnsembleAdapter(self.prob_model, P), sim, start=start, num_particles=P,
+            # the adapter sees one rank's P / size particles of each scene
+            _SceneEnsembleAdapter(self.prob_model, P // self.mesh.size), sim, start=start,
+            num_particles=P, mesh=self.mesh,
             num_ensembles=S, num_leapfrog_steps=num_leapfrog_steps,
             post_sampling_steps=post_sampling_steps, ess_threshold_ratio=ess_threshold_ratio,
             max_sampling_per_stage=max_sampling_per_stage, max_stage=max_stage, target=target,

@@ -17,6 +17,13 @@ Survey mode (``fit_svi_survey``, ``importance_evidence_survey``): S
 surrogates, one a scene, fitted together on batches of S * n scene-major
 draws; each scene's ELBO (and its finite-draw mask) is its own, and the
 gradient of their sum reaches each surrogate from its own scene only.
+
+Under a mesh (:mod:`gigalens_tpu_torch.parallel`) the surrogates are
+replicated and each rank scores its share of every scene's draws. Each
+rank divides its draws' loss sum by the global count of finite draws, and
+one ``all_reduce`` a step sums the ranks' losses and gradients, as the
+JAX package's gradient all-reduce does: N ranks add the draws in another
+order than one, so they agree with it to float32 rounding.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ import torch
 
 from gigalens_tpu_torch.inference.optim import GradientTransformation
 from gigalens_tpu_torch.model import resolve_device
+from gigalens_tpu_torch.parallel import mesh as pmesh
 from gigalens_tpu_torch.prob.bijectors import FillScaleTriL
 from gigalens_tpu_torch.prob.distributions import MultivariateNormalTriL
 
@@ -87,12 +95,9 @@ def _log_q(eps, tril):
             - 0.5 * eps.shape[-1] * math.log(2 * math.pi))
 
 
-def elbo_loss(prob_model, simulator, mean, tril, eps):
-    """Negative ELBO estimate on the draws ``z = mean + eps @ tril.T``,
-    averaged over the draws whose term is finite (F-ref-1: the others also
-    contribute no gradient). With a leading scene axis (``mean`` (S, d),
-    ``tril`` (S, d, d), ``eps`` (S, n, d)) the draws are scored as S * n
-    scene-major rows and the result is the (S,) per-scene losses."""
+def _elbo_terms(prob_model, simulator, mean, tril, eps):
+    """:func:`elbo_loss`'s per-draw terms, 0 where not finite, and the
+    finite mask."""
     d = eps.shape[-1]
     z = mean[..., None, :] + eps @ tril.transpose(-1, -2)
     lp_model, _ = prob_model.log_prob(simulator, z.reshape(-1, d))
@@ -101,7 +106,16 @@ def elbo_loss(prob_model, simulator, mean, tril, eps):
     if z.requires_grad:
         # masked draws contribute no gradient, not 0 * NaN
         z.register_hook(lambda g: torch.where(finite[..., None], g, 0.0))
-    val = torch.where(finite, val, 0.0)
+    return torch.where(finite, val, 0.0), finite
+
+
+def elbo_loss(prob_model, simulator, mean, tril, eps):
+    """Negative ELBO estimate on the draws ``z = mean + eps @ tril.T``,
+    averaged over the draws whose term is finite (F-ref-1: the others also
+    contribute no gradient). With a leading scene axis (``mean`` (S, d),
+    ``tril`` (S, d, d), ``eps`` (S, n, d)) the draws are scored as S * n
+    scene-major rows and the result is the (S,) per-scene losses."""
+    val, finite = _elbo_terms(prob_model, simulator, mean, tril, eps)
     return torch.sum(val, dim=-1) / torch.clamp(torch.sum(finite, dim=-1), min=1)
 
 
@@ -118,6 +132,7 @@ def fit_svi(
     polyak_fraction: float = 0.25,
     full_rank: bool = True,
     progress=None,
+    mesh=None,
 ):
     """Returns (q_z: MultivariateNormalTriL, elbo_loss_history).
 
@@ -138,7 +153,7 @@ def fit_svi(
     means, trils, losses = fit_svi_survey(
         prob_model, simulator, start, optimizer, n_vi=n_vi, init_scales=scale0,
         num_steps=num_steps, seed=seed, segment_steps=segment_steps,
-        polyak_fraction=polyak_fraction, full_rank=full_rank, progress=progress)
+        polyak_fraction=polyak_fraction, full_rank=full_rank, progress=progress, mesh=mesh)
     return MultivariateNormalTriL(means[0], trils[0]), losses[:, 0]
 
 
@@ -198,11 +213,9 @@ def fit_svi_survey(
     d) per-scene factors (e.g. :func:`laplace_scale_trils_survey`).
     ``draws(shape)`` gives each step's (S, n_vi, d) standard normals
     (default: a ``torch.Generator`` seeded with ``seed`` on the simulator's
-    device). ``progress`` receives the worst scene's loss. ``mesh`` other
-    than None raises (sample sharding is ROADMAP M20)."""
-    if mesh is not None:
-        raise NotImplementedError("SVI sample sharding over a mesh is not ported yet "
-                                  "(ROADMAP M20)")
+    device). ``progress`` receives the worst scene's loss. ``mesh`` shards
+    each scene's ``n_vi`` draws over its ranks (``simulator`` at one rank's
+    share, ``S * n_vi / size``); every rank returns the same surrogates."""
     device = simulator.device
     starts = torch.as_tensor(starts, dtype=torch.float32, device=device).detach()
     S, d = starts.shape
@@ -220,15 +233,26 @@ def fit_svi_survey(
         generator = torch.Generator(device=device).manual_seed(seed)
         draws = lambda shape: torch.randn(shape, generator=generator, device=device)  # noqa: E731
 
+    sharded = mesh is not None and mesh.size > 1
+
     def loss_and_grad(qz_params):
         qz_params = qz_params.detach().requires_grad_(True)
         mean, tril = unpack(qz_params)
         eps = torch.as_tensor(draws((S, n_vi, d)), dtype=torch.float32, device=device)
-        per_scene = elbo_loss(prob_model, simulator, mean, tril, eps)
+        if not sharded:
+            per_scene = elbo_loss(prob_model, simulator, mean, tril, eps)
+        else:
+            # this rank's draws of every scene over the global finite count
+            val, finite = _elbo_terms(prob_model, simulator, mean, tril,
+                                      pmesh.shard_samples(eps, mesh, dim=1))
+            count = pmesh.all_sum(mesh, torch.sum(finite, dim=-1))
+            per_scene = torch.sum(val, dim=-1) / torch.clamp(count, min=1)
         # the sum of independent per-scene losses: each surrogate receives
         # exactly the gradient of its own scene's ELBO
         (grad,) = torch.autograd.grad(torch.sum(per_scene), qz_params)
-        return per_scene.detach(), grad
+        if not sharded:
+            return per_scene.detach(), grad
+        return pmesh.all_sum(mesh, per_scene.detach(), grad)
 
     qz_params, losses = _run_adam_loop(
         loss_and_grad, params0, optimizer, num_steps, segment_steps,

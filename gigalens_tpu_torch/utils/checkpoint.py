@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from gigalens_tpu_torch.model import resolve_device
+from gigalens_tpu_torch.parallel import mesh as pmesh
 from gigalens_tpu_torch.prob.distributions import MultivariateNormalTriL
 
 
@@ -97,11 +98,18 @@ class PipelineCheckpointer:
     """Resumable MAP -> SVI -> HMC (/ SMC) runner: each ``run_*`` loads
     the phase's saved result if there is one, else runs ``fn`` and saves
     what it returns. Loaded results go to ``device`` (``None``: the CUDA
-    card)."""
+    card).
 
-    def __init__(self, directory: str, device=None):
+    Under a ``mesh`` (:mod:`gigalens_tpu_torch.parallel`) rank 0 decides
+    whether a phase is saved and writes its file, and every rank goes on
+    after a barrier, so a rerun skips the same phases on every rank. A
+    phase that runs returns each rank's own result, which is the global
+    one on every rank."""
+
+    def __init__(self, directory: str, device=None, mesh=None):
         self.dir = directory
         self.device = resolve_device(device)
+        self.mesh = mesh
         os.makedirs(directory, exist_ok=True)
 
     def _p(self, name):
@@ -110,30 +118,24 @@ class PipelineCheckpointer:
     def has(self, name: str) -> bool:
         return os.path.exists(self._p(name))
 
+    def _run(self, name, fn, save, load):
+        saved = torch.tensor([self.has(name)], dtype=torch.float32, device=self.device)
+        if bool(pmesh.replicate(saved, self.mesh)):  # rank 0's answer on every rank
+            return load(self._p(name), self.device)
+        out = fn()
+        if self.mesh is None or self.mesh.rank == 0:
+            save(self._p(name), out)
+        pmesh.barrier(self.mesh)  # the file is whole before any rank goes on
+        return out
+
     def run_map(self, fn):
-        if self.has("map"):
-            return load_map(self._p("map"), self.device)
-        z, hist = fn()
-        save_map(self._p("map"), z, hist)
-        return z, hist
+        return self._run("map", fn, lambda p, out: save_map(p, *out), load_map)
 
     def run_svi(self, fn):
-        if self.has("svi"):
-            return load_svi(self._p("svi"), self.device)
-        q_z, losses = fn()
-        save_svi(self._p("svi"), q_z, losses)
-        return q_z, losses
+        return self._run("svi", fn, lambda p, out: save_svi(p, *out), load_svi)
 
     def run_hmc(self, fn):
-        if self.has("hmc"):
-            return load_hmc(self._p("hmc"), self.device)
-        res = fn()
-        save_hmc(self._p("hmc"), res)
-        return res
+        return self._run("hmc", fn, save_hmc, load_hmc)
 
     def run_smc(self, fn):
-        if self.has("smc"):
-            return load_smc(self._p("smc"), self.device)
-        res = fn()
-        save_smc(self._p("smc"), res)
-        return res
+        return self._run("smc", fn, save_smc, load_smc)

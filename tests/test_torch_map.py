@@ -234,12 +234,21 @@ def test_unported_inputs_raise(scene):
     sim = LensSimulator(scene["tphys"], dataclasses.replace(scene["tcfg"], use_fft=False), bs=1,
                         device="cpu")
     assert sim._conv.mode == "direct"
-    # phase checkpointing is ported (M19); sample sharding over a mesh is not
+    # sample sharding over a mesh is ported (M20): a one-rank mesh is the
+    # unsharded fit, and rows that do not shard over a mesh are refused
     from gigalens_tpu_torch.inference.svi import fit_svi_survey
+    from gigalens_tpu_torch.parallel import Mesh, shard_samples
 
-    with pytest.raises(NotImplementedError, match="M20"):
-        fit_svi_survey(scene["tprob"], sim, torch.zeros((1, scene["tprob"].prior.d)),
-                       optim.scale_by_adam(), mesh=object())
+    start = torch.zeros((1, scene["tprob"].prior.d))
+    sim2 = LensSimulator(scene["tphys"], scene["tcfg"], bs=2, device="cpu")
+    fits = [fit_svi_survey(scene["tprob"], sim2, start, optim.scale_by_adam(), n_vi=2,
+                           num_steps=1, mesh=mesh) for mesh in (None, Mesh("cpu"))]
+    for a, b in zip(*fits):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    two = Mesh("cpu")
+    two.rank, two.size = 1, 2
+    with pytest.raises(ValueError, match="do not shard"):
+        shard_samples(torch.zeros(3, 2), two)
 
 
 def test_simulator_get_passes_non_dict_params():

@@ -377,5 +377,10 @@ def test_post_chain_shape_and_sequence_smc(demo_prior):
     assert torch.isfinite(res.post_samples).all() and torch.isfinite(res.particles).all()
     assert [c[0] for c in calls] == list(range(1, res.num_stages + 1))
     assert 0.0 < float(res.final_beta[0]) and res.num_stages <= 2
-    with pytest.raises(NotImplementedError, match="M20"):
-        fit_smc(prob, seq._sim(8, exact=True), num_particles=8, mesh=object())
+    # the sequence's one-rank mesh (sample sharding is ported, M20) runs
+    # the unsharded sampler
+    assert seq.mesh.size == 1 and seq.mesh.group is None
+    again = fit_smc(prob, seq._sim(8, exact=True), num_particles=8, num_leapfrog_steps=2,
+                    post_sampling_steps=10, max_stage=2, max_sampling_per_stage=4, seed=0)
+    torch.testing.assert_close(again.particles, res.particles, rtol=0, atol=0)
+    torch.testing.assert_close(again.post_samples, res.post_samples, rtol=0, atol=0)

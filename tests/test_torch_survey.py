@@ -727,8 +727,12 @@ def test_survey_smc_subsamples_each_scene_and_returns_scene_major_rows(survey):
         assert d_own < d_other, (s, d_own, d_other)
         assert np.linalg.norm(parts[:, s].mean(0) - z[s * P:(s + 1) * P].mean(0)) < 1.0
     assert starts[0].isdisjoint(starts[1])
-    with pytest.raises(NotImplementedError, match="M20"):
-        SurveySequence(sc["phys"], model, sc["cfg"], mesh=object(), device="cpu")
+    # sample sharding is ported (M20): a sequence takes a mesh, on its device
+    from gigalens_tpu_torch.parallel import Mesh
+
+    assert SurveySequence(sc["phys"], model, sc["cfg"], mesh=Mesh("cpu")).device.type == "cpu"
+    with pytest.raises(ValueError, match="mesh"):
+        SurveySequence(sc["phys"], model, sc["cfg"], mesh=Mesh("cpu"), device="cuda")
     with pytest.raises(TypeError):
         SurveySequence(sc["phys"], ForwardProbModel(sc["prior"], sc["obs"][0],
                                                     background_rms=BKG, exp_time=EXP_T,
