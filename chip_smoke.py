@@ -7,6 +7,7 @@
                                       # launch counts, and no ok line follows
     python3 chip_smoke.py --inversion # steps 1, 2 and 12 only, the same kind of aid
     python3 chip_smoke.py --mesh      # steps 1, 2 and 13 only, the same kind of aid
+    python3 chip_smoke.py --cluster   # steps 1, 2, 10 and 10b only, the same kind of aid
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the hand-written kernels from gigalens_tpu_torch/csrc/ with nvcc
@@ -77,7 +78,8 @@
    states) and SMC (the 1000 final particles) shapes, and the direct K4 at
    the SVI shape, against their float64 twins.
 10. Runs the cluster scene of config #5, dpie arm
-   (scripts/bench_cluster_posterior.py:86-190: NFW_ELLIPSE halo, 20
+   (gigalens_tpu_torch.bench.cluster_scene, the counterpart of
+   scripts/bench_cluster_posterior.py:86-190: NFW_ELLIPSE halo, 20
    luminosity-scaled DPIESubhaloSeries members of order 3 in chunks of 16,
    Shapelets(4) source with sampled amplitudes, 48 px at 0.2", supersample
    2, a 9x9 Gaussian PSF, bkg 0.1, exp_time 500): the series precompute on
@@ -90,6 +92,20 @@
    with one stage profiled; a 50-step lstsq MAP (K6/K7); K5, K6, K7 and the
    direct K4 at the phase's shapes and grids against their twins; and
    scripts/bench_cluster.py's hot loop (direct sum against the series).
+10b. Runs config #5's full posterior (gigalens_tpu_torch.bench.ClusterRun,
+   the counterpart of the script's run_pipeline) on both arms at full
+   width with depths cut: the dpie arm from step 10's MAP starts through
+   the FD Laplace, SVI 256 x 100 and static-L8 HMC 50 x (80 + 80) (K5/K7
+   and the direct K4 both ways in SVI, K5/K7 and no K4 in HMC); the sie
+   arm (ScalingRelation(NIE) members, unfused; Shapelets(4) solved by
+   lstsq in a BackwardProbModel, no positions) through MAP 128 x 150 (the
+   direct K4 exactly once a step each way, over 15 x 128 component
+   images), SVI 256 x 50 and static-L8 HMC 50 x (50 + 50) (no K1-K3 or
+   K5-K7 anywhere, no K4 in HMC); each gated on finite samples, an HMC
+   acceptance in (0.3, 1) and the last draw's pixel red-chi2 in [0.85,
+   1.15] (divergences, split-R-hat and ESS printed); then K5/K7 at the
+   dpie SVI's and HMC's batches (256, 50) and the direct K4 at (256, 96,
+   96) and (1,920, 96, 96) against their twins.
 11. Runs survey mode on scripts/bench_survey_production.py's catalogue at
    full width (gigalens_tpu_torch.bench.survey_scene: 4 scenes, 60 px at
    0.065", supersample 2, one PSF a scene, the bench prior and model)
@@ -129,19 +145,23 @@
    step counts (MAP 500 x 50, SVI 1000 x 20, ChEES HMC 50 x (20 + 20), SMC
    1000 particles x 3 stages): in this process, then one nccl rank and two
    gloo ranks on the card side by side, each held to the in-process run at
-   tests/test_sharding.py's tolerances (HMC from the in-process surrogate),
-   every rank's launch counters by the pipeline's rules, the phase inside
+   tests/test_sharding.py's tolerances (HMC from the in-process surrogate);
+   and below the rows where the card's per-row pixel sums round by the
+   rows a call holds: MAP 24 starts, HMC 24 chains and SMC 24 particles in
+   this process and on two gloo ranks (12 rows a rank), held alike; every
+   rank's launch counters by the pipeline's rules, the phase inside
    MESH_TIMEOUT.
 14. Ends with the card line, a JSON line of per-kernel results and the ok
    line.
 
-Step 11 runs in a second process (spawned) beside steps 6-8 and step 10's
-sampling, which are host-bound like it. Every measurement made for the
-record (the stage profiles of steps 7, 10 and 11, step 9, step 10's and
-11's kernels rows, the hot loop) waits until the card is one process's:
-step 11's until the main process has sampled step 10, the main process's
-until step 11's process has ended. The walls of the sampling phases of
-steps 6-8, 10 and 11 are taken beside the other process.
+Step 11 runs in a second process (spawned) beside steps 6-8 and steps 10
+and 10b's sampling, which are host-bound like it. Every measurement made
+for the record (the stage profiles of steps 7, 10 and 11, step 9, steps
+10's, 10b's and 11's kernels rows, the hot loop) waits until the card is
+one process's: step 11's until the main process has sampled step 10b, the
+main process's until step 11's process has ended. The walls of the
+sampling phases of steps 6-8, 10, 10b and 11 are taken beside the other
+process.
 
 Every phase raises on failure (nothing is caught; step 11's process is
 stopped when the main process fails, and its failure raises in the main
@@ -1397,9 +1417,10 @@ def smc_phase(pipe, rec):
     return res, profiled
 
 
-def profile_stage(label, stage):
-    """Runs ``stage`` (one SMC stage from a final cloud; returns its
-    evaluations with gradients) plain, then under torch.profiler, and
+def profile_stage(label, stage, what="one stage from the final cloud"):
+    """Runs ``stage`` (``what``: one SMC stage from a final cloud by
+    default; returns its evaluations with gradients) plain, then under
+    torch.profiler, and
     prints host ms a leapfrog, device busy ms a leapfrog, the idle share of
     the unprofiled wall (each per evaluation), launches a leapfrog and the
     largest kernels. Returns (device rows, evaluations of the profiled
@@ -1419,7 +1440,7 @@ def profile_stage(label, stage):
         wall = time.perf_counter() - t0
     rows = device_rows(prof)
     busy = sum(r[0] for r in rows) / 1e6
-    print(f"{label} profile (one stage from the final cloud, {evals} evaluations with "
+    print(f"{label} profile ({what}, {evals} evaluations with "
           f"gradients): {1e3 * plain / evals:.3f} ms/leapfrog unprofiled, "
           f"{1e3 * wall / evals_p:.3f} profiled; device busy {1e3 * busy / evals_p:.3f} "
           f"ms/leapfrog = idle {100 * (1 - busy * evals / (plain * evals_p)):.1f}% of the "
@@ -1512,11 +1533,9 @@ def positions_phase(pipe):
 
 
 # the cluster phase: the dpie arm of config #5 as
-# scripts/bench_cluster_posterior.py:86-190 builds it, MAP then SMC as
-# examples/demo_cluster.py:183-190 runs it (post steps cut from 100 to 10)
-CL_G, CL_PIX, CL_DELTA, CL_NMAX, CL_ORDER, CL_CHUNK = 20, 48, 0.2, 4, 3, 16
-CL_CONSTS = dict(r_cut=1.5, r_core=0.08)  # the series' expansion point: the prior mean
-CL_BKG, CL_EXP_TIME, CL_POS_ERR = 0.1, 500.0, 0.1
+# scripts/bench_cluster_posterior.py:86-190 builds it (bench.cluster_scene),
+# MAP then SMC as examples/demo_cluster.py:183-190 runs it (post steps cut
+# from 100 to 10)
 CL_MAP_N, CL_MAP_STEPS, CL_LSTSQ_STEPS = 128, 400, 50
 CL_PARTICLES, CL_LEAPFROG, CL_POST, CL_MAX_STAGE = 1000, 10, 10, 200
 CL_CHI2 = (0.85, 1.15)  # the config #5 gate (BASELINE.md:526)
@@ -1538,53 +1557,6 @@ CL_MAP_NEED = ("fused_builder_fwd_sum", "fused_builder_bwd", "direct_conv_fwd",
 BUILDER_ROUTE_BANNED = ("fused_render_fwd", "fused_render_fwd_omega", "fused_render_bwd")
 
 
-def cluster_catalogue(n=CL_G, spread=6.0, e_max=0.2):
-    """The member catalogue of scripts/bench_cluster_posterior.py (seed 0)."""
-    import numpy as np
-
-    rng = np.random.default_rng(0)
-    return dict(lum=rng.uniform(0.3, 3.0, n).astype(np.float32),
-                center_x=rng.normal(0, spread, n).astype(np.float32),
-                center_y=rng.normal(0, spread, n).astype(np.float32),
-                e1=rng.uniform(-e_max, e_max, n).astype(np.float32),
-                e2=rng.uniform(-e_max, e_max, n).astype(np.float32))
-
-
-def cluster_scene(lstsq=False, members=None):
-    """(phys, prior, cfg, members): NFW_ELLIPSE + DPIESubhaloSeries(order 3,
-    chunks of 16) + Shapelets(4), 48 px at 0.2", supersample 2, the 9x9
-    Gaussian PSF (sigma sqrt(2) native px)."""
-    import numpy as np
-
-    from gigalens_tpu_torch import PhysicalModel, SimulatorConfig
-    from gigalens_tpu_torch.prob import Prior
-    from gigalens_tpu_torch.prob import distributions as d
-    from gigalens_tpu_torch.profiles.light import Shapelets
-    from gigalens_tpu_torch.profiles.mass import NFW_ELLIPSE, DPIESubhaloSeries
-
-    if members is None:
-        members = DPIESubhaloSeries(lum_star=1.0, galaxy_catalogue=cluster_catalogue(),
-                                    order=CL_ORDER, chunk_size=CL_CHUNK)
-    shapelets = Shapelets(CL_NMAX, use_lstsq=lstsq)
-    phys = PhysicalModel([NFW_ELLIPSE(), members], [], [shapelets])
-    src = dict(beta=d.LogNormal(math.log(0.4), 0.2), center_x=d.Normal(0, 0.3),
-               center_y=d.Normal(0, 0.3))
-    if not lstsq:
-        src.update({a: d.Normal(0, 5.0) for a in shapelets._amp_names})
-    prior = Prior(dict(
-        lens_mass=[dict(Rs=d.LogNormal(math.log(10.0), 0.2),
-                        alpha_Rs=d.LogNormal(math.log(4.0), 0.3), e1=d.Normal(0, 0.1),
-                        e2=d.Normal(0, 0.1), center_x=d.Normal(0, 0.5),
-                        center_y=d.Normal(0, 0.5)),
-                   dict(theta_E=d.LogNormal(math.log(0.3), 0.3),
-                        r_cut=d.LogNormal(math.log(1.5), 0.2))],
-        source_light=[src]))
-    g = np.exp(-((np.arange(9) - 4) ** 2 + (np.arange(9)[:, None] - 4) ** 2) / 4.0)
-    cfg = SimulatorConfig(delta_pix=CL_DELTA, num_pix=CL_PIX, supersample=2,
-                          kernel=(g / g.sum()).astype(np.float32))
-    return phys, prior, cfg, members
-
-
 def series_checks(members, prior, sim, dev):
     """The series deflection on the phase's grid against the direct
     ScalingRelation(DPIE) sum, theta_E from its prior at CL_SERIES_BS
@@ -1599,7 +1571,10 @@ def series_checks(members, prior, sim, dev):
     te = prior.sample(gen, CL_SERIES_BS)["lens_mass"][1]["theta_E"][:, None]
     u = torch.rand((CL_SERIES_BS, 1), generator=gen, device=dev) - 0.5
     x, y = sim.img_x, sim.img_y
-    r0, r_core = CL_CONSTS["r_cut"], torch.tensor(CL_CONSTS["r_core"], device=dev)
+    from gigalens_tpu_torch import bench
+
+    consts = bench.CL_CONSTS
+    r0, r_core = consts["r_cut"], torch.tensor(consts["r_core"], device=dev)
 
     def both(theta_E, r_cut):
         with torch.no_grad():
@@ -1615,7 +1590,7 @@ def series_checks(members, prior, sim, dev):
     sig = torch.tensor([-2.0, -1.0, 1.0, 2.0], device=dev)[:, None]
     got, want = both(torch.full_like(sig, 0.3), r0 * torch.exp(0.2 * sig))
     tails = torch.stack([(g - w).abs().amax(1) for g, w in zip(got, want)]).amax(0).tolist()
-    print(f"cluster series ({CL_G} members, order {CL_ORDER}, {x.shape[0]} px, bs "
+    print(f"cluster series ({members.n_galaxy} members, order {bench.CL_ORDER}, {x.shape[0]} px, bs "
           f"{CL_SERIES_BS}) against the direct dPIE sum: rel err at dv = 0 {e0:.3e} (of the "
           f"max), max |err| in the +-0.5 sigma r_cut band {e1:.3e}; truncation at theta_E 0.3, "
           f"r_cut at -2 / -1 / +1 / +2 sigma: " + " / ".join(f"{t:.2e}" for t in tails),
@@ -1626,18 +1601,20 @@ def cluster_phase():
     """The cluster scene of config #5 (dpie arm) through MAP -> SMC on the
     builder's series stage, then the lstsq MAP. Returns (launch counts by
     phase, a callable that runs cluster_timed on the phase's states and
-    returns its kernels rows)."""
-    import numpy as np
+    returns its kernels rows, (the scene, the MAP's z and wall) for step
+    10b)."""
     import torch
 
+    from gigalens_tpu_torch import PhysicalModel
     from gigalens_tpu_torch.inference import ModellingSequence
     from gigalens_tpu_torch.inference.sequence import map_optimizer
     from gigalens_tpu_torch.inference.smc import fit_smc
-    from gigalens_tpu_torch.model import BackwardProbModel, ForwardProbModel
+    from gigalens_tpu_torch.model import BackwardProbModel
     from gigalens_tpu_torch.ops.cuda import fused_builder as fb
     from gigalens_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from gigalens_tpu_torch.profiles.light import Shapelets
+    from gigalens_tpu_torch.profiles.mass import NFW_ELLIPSE
     from gigalens_tpu_torch.simulator import LensSimulator
-    from gigalens_tpu_torch.utils import find_images
 
     dev = torch.device("cuda")
     t_phase = time.perf_counter()
@@ -1645,41 +1622,26 @@ def cluster_phase():
     def clock():
         return f"[{time.perf_counter() - t_phase:.1f} s into the phase]"
 
-    phys, prior, cfg, members = cluster_scene()
+    from gigalens_tpu_torch import bench
 
-    # 1. the series precompute at the prior-mean point, on the card
+    # 1. the scene: the series precompute at the prior-mean point, on the card
+    sc = bench.cluster_scene("dpie", device=dev)
+    phys, prior, cfg, members, prob = sc.phys, sc.prior, sc.cfg, sc.members, sc.prob
     probe = LensSimulator(phys, cfg, bs=1, device=dev)
-    members.set_constants(CL_CONSTS)
-    members.set_grid(probe.img_x, probe.img_y)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    members.set_deriv()
-    torch.cuda.synchronize()
-    t_pre = time.perf_counter() - t0
-    print(f"cluster: series precompute (set_deriv, {CL_G} members, order {CL_ORDER}, "
-          f"{probe.img_x.shape[0]} px) {t_pre:.3f} s, coefficients "
+    print(f"cluster: series precompute (set_deriv, {sc.galaxies} members, order "
+          f"{bench.CL_ORDER}, {probe.img_x.shape[0]} px) {sc.precompute_s:.3f} s, coefficients "
           f"{tuple(members._deriv_coefs.shape)}", flush=True)
     series_checks(members, prior, probe, dev)
     print(f"cluster: series checked {clock()}", flush=True)
 
     # 2. truth, observation and the images of the true source
-    truth = prior.sample(torch.Generator(device=dev).manual_seed(5), 1)
-    with torch.no_grad():
-        clean = probe.simulate(truth).cpu().numpy()
-    noise = np.random.default_rng(3).normal(size=clean.shape).astype(np.float32)
-    obs = clean + noise * np.sqrt(CL_BKG**2 + np.clip(clean, 0, None) / CL_EXP_TIME)
-    src = truth["source_light"][0]
-    img_x, img_y, mags = find_images(probe, truth["lens_mass"], float(src["center_x"][0]),
-                                     float(src["center_y"][0]), search_window=4.0)
+    truth, obs = sc.truth, sc.obs
+    img_x, img_y, mags = sc.images
     print(f"cluster: find_images: {len(img_x)} images "
           + ", ".join(f"({a:+.3f}, {b:+.3f}; mu {m:+.2f})" for a, b, m in zip(img_x, img_y, mags))
           + f" {clock()}", flush=True)
-    if len(img_x) < 2:
+    if len(img_x) < 2 or not prob.include_positions:
         raise AssertionError(f"find_images found {len(img_x)} image(s) of the cluster truth")
-    err = np.full(len(img_x), CL_POS_ERR, np.float32)
-    prob = ForwardProbModel(prior, obs, background_rms=CL_BKG, exp_time=CL_EXP_TIME,
-                            centroids_x=[img_x], centroids_y=[img_y], centroids_errors_x=[err],
-                            centroids_errors_y=[err], device=dev)
     seq = ModellingSequence(phys, prob, cfg, device=dev)
     counts = {}
 
@@ -1768,8 +1730,9 @@ def cluster_phase():
         return out.num_moves * CL_LEAPFROG + 1
 
     # 5. the lstsq MAP (BackwardProbModel, Shapelets(4)[lstsq]): K6/K7
-    phys_l, prior_l, _, _ = cluster_scene(lstsq=True, members=members)
-    prob_l = BackwardProbModel(prior_l, obs, background_rms=CL_BKG, exp_time=CL_EXP_TIME,
+    phys_l = PhysicalModel([NFW_ELLIPSE(), members], [], [Shapelets(bench.CL_NMAX, use_lstsq=True)])
+    prior_l = bench.cluster_prior("dpie", amplitudes=False)
+    prob_l = BackwardProbModel(prior_l, obs, background_rms=bench.CL_BKG, exp_time=bench.CL_EXP_TIME,
                                device=dev)
     seq_l = ModellingSequence(phys_l, prob_l, cfg, device=dev)
     torch.cuda.synchronize()
@@ -1794,7 +1757,7 @@ def cluster_phase():
 
     print(f"cluster phase: sampled in {time.perf_counter() - t_phase:.1f} s", flush=True)
     return counts, lambda: cluster_timed(dev, stage, prior, prior_l, (sim_map, z_map),
-                                         (sim_smc, res), (sim_l, z_l))
+                                         (sim_smc, res), (sim_l, z_l)), (sc, z_map, t_map)
 
 
 def cluster_timed(dev, stage, prior, prior_l, map_, smc, lstsq):
@@ -1853,7 +1816,9 @@ def cluster_hot_loop(dev):
     from gigalens_tpu_torch.profiles.mass import DPIESubhalo, DPIESubhaloSeries
 
     rng = np.random.default_rng(0)
-    cat = cluster_catalogue(HOT_G, 20.0, 0.3)
+    from gigalens_tpu_torch import bench
+
+    cat = bench.cluster_catalogue(HOT_G, 20.0, 0.3)
     side = np.linspace(-30, 30, HOT_SIDE, dtype=np.float32)
     X, Y = np.meshgrid(side, side)
     x = torch.tensor(X.reshape(-1), device=dev)
@@ -1861,7 +1826,7 @@ def cluster_hot_loop(dev):
     scales = torch.tensor(np.stack([rng.uniform(0.5, 1.5, HOT_BS), np.full(HOT_BS, 0.08),
                                     np.full(HOT_BS, 1.6)], 1).astype(np.float32), device=dev)
     direct = DPIESubhalo(lum_star=1.0, galaxy_catalogue=cat, chunk_size=HOT_CHUNK)
-    series = DPIESubhaloSeries(lum_star=1.0, galaxy_catalogue=cat, order=CL_ORDER,
+    series = DPIESubhaloSeries(lum_star=1.0, galaxy_catalogue=cat, order=bench.CL_ORDER,
                                chunk_size=HOT_CHUNK)
 
     def timed(fn):
@@ -1898,9 +1863,184 @@ def cluster_hot_loop(dev):
     with torch.no_grad():
         out["series fwd"] = timed(lambda: series_sum(scales))
     out["series fwd+grad"] = timed(lambda: fwd_grad(series_sum))
-    print(f"cluster hot loop (G {HOT_G}, P {x.shape[0]}, bs {HOT_BS}, order {CL_ORDER}, chunks "
+    print(f"cluster hot loop (G {HOT_G}, P {x.shape[0]}, bs {HOT_BS}, order {bench.CL_ORDER}, chunks "
           f"of {HOT_CHUNK}), ms: " + ", ".join(f"{k} {v:.3f}" for k, v in out.items()),
           flush=True)
+
+
+# step 10b: config #5's full posterior (gigalens_tpu_torch.bench.ClusterRun,
+# scripts/bench_cluster_posterior.py's run_pipeline) at full width (48 px, 20
+# members, 128 MAP starts, 256 SVI draws, 50 chains) with its depths cut:
+# the dpie arm from step 10's MAP starts through the FD Laplace, SVI and
+# static-L HMC (chains, burn-in, results), the sie arm (lstsq source) from
+# its own MAP through the same
+CL_VI_N, CL_INIT_L = 256, 8
+CL_DPIE_VI_STEPS, CL_DPIE_HMC = 100, (50, 80, 80)
+CL_SIE_MAP_STEPS, CL_SIE_VI_STEPS, CL_SIE_HMC = 150, 50, (50, 50, 50)
+CL_ACCEPT = (0.3, 1.0)  # the HMC acceptance (last 100 steps) must fall inside
+CL_SVI_NEED = ("fused_builder_fwd_sum", "fused_builder_bwd", "direct_conv_fwd",
+               "direct_conv_transpose")
+CL_HMC_NEED = ("fused_builder_fwd_sum", "fused_builder_bwd")
+BUILDER_BANNED = ("fused_builder_fwd_sum", "fused_builder_fwd_components", "fused_builder_bwd")
+
+
+def cluster_posterior_phase(sc, z_map, t_map):
+    """Step 10b: both arms of config #5 through bench.ClusterRun at full
+    width, depths cut. dpie: step 10's MAP (``z_map``, its wall
+    ``t_map``), the FD Laplace, SVI CL_VI_N x CL_DPIE_VI_STEPS and static-L
+    HMC CL_DPIE_HMC; K5/K7 and the direct K4 both ways in SVI, K5/K7 and
+    no K4 in HMC. sie (NIE members unfused, lstsq source, no positions): MAP
+    128 x CL_SIE_MAP_STEPS (the direct K4 exactly once a step each way over
+    15 x 128 component images), SVI CL_VI_N x CL_SIE_VI_STEPS, static-L HMC
+    CL_SIE_HMC; no K1-K3 or K5-K7 anywhere, no K4 in HMC. Gates: finite
+    samples, acceptance inside CL_ACCEPT, the last draw's pixel red-chi2
+    inside CL_CHI2 (divergences, R-hat and ESS printed). Returns (launch
+    counts by phase, a callable that checks K5/K7 and the direct K4 at the
+    step's new shapes against their twins and returns the kernels rows)."""
+    import torch
+
+    from gigalens_tpu_torch import bench
+    from gigalens_tpu_torch.ops.cuda import fused_builder as fb
+    from gigalens_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    counts, runs = {}, {}
+
+    def hook_for(kind):
+        @contextlib.contextmanager
+        def hook(name):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            yield
+            torch.cuda.synchronize()
+            counts[f"cluster_{kind}_{name}"] = launch_counts()
+            print(f"cluster {kind} {name}: {time.perf_counter() - t0:.2f} s, peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, launches "
+                  f"{json.dumps(counts[f'cluster_{kind}_{name}'])} "
+                  f"[{time.perf_counter() - t_phase:.1f} s into step 10b]", flush=True)
+        return hook
+
+    run = runs["dpie"] = bench.ClusterRun(sc, device=dev, hook=hook_for("dpie"))
+    run.set_map(z_map, t_map)
+    for bs, exact in ((CL_VI_N, False), (CL_DPIE_HMC[0], True)):
+        sim = run.seq._sim(bs, exact=exact)
+        spec = sim._fused_spec
+        if not (sim._use_fused and spec is not None
+                and fb.SERIES in [st.op for st in spec.stages]
+                and (exact or direct_route(sim))):
+            raise AssertionError(f"the dpie {'HMC' if exact else 'SVI'} simulator must take the "
+                                 "builder tier with a series stage (and the direct K4 for SVI)")
+    run.phase_svi(CL_VI_N, CL_DPIE_VI_STEPS)
+    run.phase_hmc(*CL_DPIE_HMC, traj="static", init_l=CL_INIT_L, mass_windows=1, seed=3)
+    run.phase_report()
+
+    sie = bench.cluster_scene("sie", source="lstsq", device=dev)
+    run_s = runs["sie"] = bench.ClusterRun(sie, device=dev, hook=hook_for("sie"))
+    sim = run_s.seq._sim(CL_MAP_N)
+    if sim._use_fused and (sim._fused_spec is not None or sim._fused_niter is not None):
+        raise AssertionError("the sie arm's NIE members must render unfused")
+    if not direct_route(sim):
+        raise AssertionError("the sie MAP simulator must take the direct K4")
+    run_s.phase_map(CL_MAP_N, CL_SIE_MAP_STEPS)
+    run_s.phase_svi(CL_VI_N, CL_SIE_VI_STEPS)
+    run_s.phase_hmc(*CL_SIE_HMC, traj="static", init_l=CL_INIT_L, mass_windows=1, seed=3)
+    run_s.phase_report()
+
+    for kind, r in runs.items():
+        row = r.row
+        print(f"cluster {kind} JSON: {json.dumps(row)}", flush=True)
+        print(f"cluster {kind}: HMC {row['leapfrogs']} leapfrogs in {row['t_hmc']:.2f} s "
+              f"({1e3 * row['t_hmc'] / max(row['leapfrogs'], 1):.3f} ms/leapfrog), accept "
+              f"{row['accept']:.3f}, divergences {row['divergent_chain_steps']}, max split-R-hat "
+              f"{row['max_rhat']:.4f}, min ESS {row['min_ess']:.1f}, posterior pixel red-chi2 "
+              f"{row['posterior_red_chi2']:.4f}, theta_E* {row['theta_E_star']}", flush=True)
+        if not torch.isfinite(r.samples).all():
+            raise AssertionError(f"cluster {kind} HMC samples not finite")
+        if not CL_ACCEPT[0] < row["accept"] < CL_ACCEPT[1]:
+            raise AssertionError(f"cluster {kind} HMC acceptance {row['accept']} outside "
+                                 f"{CL_ACCEPT}")
+        if not CL_CHI2[0] <= row["posterior_red_chi2"] <= CL_CHI2[1]:
+            raise AssertionError(f"cluster {kind} posterior red-chi2 "
+                                 f"{row['posterior_red_chi2']} outside {CL_CHI2}")
+    n = CL_SIE_MAP_STEPS
+    check_launches("cluster dpie SVI", counts["cluster_dpie_svi"], CL_SVI_NEED,
+                   BUILDER_ROUTE_BANNED + ("fused_builder_fwd_components", "dft_conv_fwd",
+                                           "dft_conv_transpose"))
+    check_launches("cluster dpie HMC", counts["cluster_dpie_hmc"], CL_HMC_NEED,
+                   HMC_BANNED + BUILDER_ROUTE_BANNED + ("fused_builder_fwd_components",))
+    check_launches("cluster sie MAP", counts["cluster_sie_map"],
+                   banned=BUILDER_ROUTE_BANNED + BUILDER_BANNED + ("dft_conv_fwd",
+                                                                   "dft_conv_transpose"),
+                   exact=dict(direct_conv_fwd=n, direct_conv_transpose=n))
+    check_launches("cluster sie SVI", counts["cluster_sie_svi"],
+                   ("direct_conv_fwd", "direct_conv_transpose"),
+                   BUILDER_ROUTE_BANNED + BUILDER_BANNED)
+    check_launches("cluster sie HMC", counts["cluster_sie_hmc"], (),
+                   HMC_BANNED + BUILDER_ROUTE_BANNED + BUILDER_BANNED)
+    print(f"step 10b: config #5's full posterior, both arms, in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts, lambda: cluster_posterior_kernels(runs)
+
+
+def cluster_posterior_kernels(runs):
+    """Step 10b's kernels at their new shapes, against their twins, with
+    the card to this process: K5/K7 at the dpie SVI's batch (CL_VI_N draws
+    from its surrogate) and its HMC's (the chains' last states); the direct
+    K4 both ways at the dpie SVI's (CL_VI_N, 96, 96) (K5's images) and at
+    the sie MAP's (15 x 128, 96, 96) (the component images of its last
+    states); first one profiled pass of a few HMC steps of each arm (host
+    and device ms a leapfrog, idle share). Returns the kernels rows."""
+    import torch
+
+    from gigalens_tpu_torch.ops.cuda import fused_builder as fb
+
+    dev = torch.device("cuda")
+    for kind, r in runs.items():
+        n_hmc = (CL_DPIE_HMC if kind == "dpie" else CL_SIE_HMC)[0]
+
+        def stage(r=r, n_hmc=n_hmc):
+            res = r.seq.HMC(r.q_z, n_hmc=n_hmc, num_burnin_steps=1, num_results=2,
+                            trajectory_adaptation="static", init_l=CL_INIT_L, seed=PROFILE_SEED)
+            return res.total_leapfrogs + 1
+
+        profile_stage(f"cluster {kind} HMC", stage,
+                      f"3 steps of static-L{CL_INIT_L} HMC, {n_hmc} chains from the surrogate")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    run = runs["dpie"]
+    prior = run.scene.prior
+    kernels = []
+    for phase, z, exact in (("cluster_dpie_svi", run.q_z.sample(gen, CL_VI_N), False),
+                            ("cluster_dpie_hmc", run.samples[-1], True)):
+        sim = run.seq._sim(z.shape[0], exact=exact)
+        spec = sim._fused_spec
+        params = spec.pack(prior.constrain(z)).contiguous()
+        extras = spec.gather_extras(sim.img_x, sim.img_y)
+        where = f"cluster dpie {phase.split('_')[2].upper()} bs={params.shape[0]}"
+        kernels += builder_rows(spec, params, sim.img_x, sim.img_y, True, gen, phase, where,
+                                extras, fwd_rel=CLUSTER_FWD_REL)
+        if not exact:
+            with torch.no_grad():
+                flat = fb.fused_builder_fwd(spec, params, sim.img_x, sim.img_y, extras)
+            conv = sim._conv
+            xin = flat.reshape(-1, conv.h, conv.w).contiguous()
+            ctc = torch.randn((xin.shape[0], conv.h // conv.pool, conv.w // conv.pool),
+                              generator=gen, device=dev)
+            rows, _ = direct_checks(conv, xin, ctc, where)
+            kernels += [dict(r, phase=phase) for r in rows]
+    run = runs["sie"]
+    sim = run.seq._sim(CL_MAP_N)
+    with torch.no_grad():
+        comps = sim._flat_light(run.scene.prior.constrain(run.z_map), stack_components=True)
+    conv = sim._conv
+    xin = sim._place(comps).reshape(-1, conv.h, conv.w).contiguous()
+    ctc = torch.randn((xin.shape[0], conv.h // conv.pool, conv.w // conv.pool), generator=gen,
+                      device=dev)
+    rows, _ = direct_checks(conv, xin, ctc, f"cluster sie lstsq MAP {xin.shape[0]} images")
+    kernels += [dict(r, phase="cluster_sie_map") for r in rows]
+    return kernels
 
 
 # the survey phase: scripts/bench_survey_production.py's catalogue at full
@@ -2596,6 +2736,10 @@ def inversion_phase():
 # (burn-in + results), SMC particles x stages (3 leapfrogs a move, 2 post
 # steps); the whole phase's time limit
 MESH_MAP, MESH_VI, MESH_HMC, MESH_SMC = (500, 50), (1000, 20), (50, 20, 20), (1000, 3)
+# the few-rows configuration: MAP starts, HMC chains and SMC particles in all
+# (12 rows a rank on two ranks; the card's per-row pixel sums round by the
+# rows a call holds below 16)
+MESH_FEW = 24
 MESH_TIMEOUT = 150.0
 # tests/test_sharding.py's tolerances: (rtol, atol) per compared result
 MESH_TOL = dict(map=(1e-4, 1e-5), best=(1e-4, 1e-5), losses=(1e-4, 1e-2), mean=(1e-4, 1e-5),
@@ -2624,14 +2768,16 @@ def busy_share(prof, wall_s):
     return busy * 1e-9 / wall_s
 
 
-def mesh_run(mesh, obs, n_hmc=MESH_HMC[0], q_ref=None):
+def mesh_run(mesh, obs, n_hmc=MESH_HMC[0], q_ref=None, rows=None):
     """One rank's (or, with ``mesh=None``, the in-process) run of the mesh
     phase on the bench scene's observation ``obs``: MAP from prior draws
     and best_map_start, the FD Laplace factor, SVI, ChEES HMC (``n_hmc``
     chains) from the surrogate ``q_ref`` ((loc, scale_tril): the in-process
     run's, since SVI's all-reduce rounds differently from one process and
     each phase is held to one process's from the same inputs; None: its own
-    SVI's), SMC from the prior. Each phase runs
+    SVI's), SMC from the prior. ``rows``: MAP starts, HMC chains and SMC
+    particles all ``rows``, and no Laplace or SVI (HMC from ``q_ref``). Each
+    phase runs
     between launch-counter resets under torch.profiler (CUDA activity
     only); returns the global results, and per phase the launch counts, the
     wall (host clock, the card synchronized) and the busy share."""
@@ -2664,24 +2810,27 @@ def mesh_run(mesh, obs, n_hmc=MESH_HMC[0], q_ref=None):
             wall = time.perf_counter() - t0
         rec[name] = dict(counts=launch_counts(), wall=wall, busy=busy_share(prof, wall))
 
-    (n, steps), (n_vi, vi_steps) = MESH_MAP, MESH_VI
+    (n, steps), (n_vi, vi_steps), (particles, stages) = MESH_MAP, MESH_VI, MESH_SMC
+    if rows is not None:
+        n = n_hmc = particles = rows
     with phase("map"):
         z = seq.MAP(map_optimizer(steps), n_samples=n, num_steps=steps, seed=0)
         best = seq.best_map_start(z)
-    L0 = seq.laplace_scale_tril(best)
-    with phase("svi"):
-        q, losses = seq.SVI(best, svi_optimizer(vi_steps), n_vi=n_vi, num_steps=vi_steps,
-                            init_scales=L0, seed=1)
+    out = dict(map=z, best=best)
+    if rows is None:
+        L0 = seq.laplace_scale_tril(best)
+        with phase("svi"):
+            q, losses = seq.SVI(best, svi_optimizer(vi_steps), n_vi=n_vi, num_steps=vi_steps,
+                                init_scales=L0, seed=1)
+        out.update(losses=losses, mean=q.mean(), scale_tril=q.scale_tril)
     _, burnin, results = MESH_HMC
     q_hmc = q if q_ref is None else MultivariateNormalTriL(*(t.to(dev) for t in q_ref))
     with phase("hmc"):
         res = seq.HMC(q_hmc, n_hmc=n_hmc, num_burnin_steps=burnin, num_results=results, seed=2)
-    particles, stages = MESH_SMC
     with phase("smc"):
         smc = seq.SMC(num_particles=particles, num_leapfrog_steps=3, post_sampling_steps=2,
                       ess_threshold_ratio=0.6, max_stage=stages, seed=1)
-    out = dict(map=z, best=best, losses=losses, mean=q.mean(), scale_tril=q.scale_tril,
-               hmc=res.samples, final_beta=smc.final_beta, particles=smc.particles,
+    out.update(hmc=res.samples, final_beta=smc.final_beta, particles=smc.particles,
                stages=smc.num_stages, leapfrogs=res.total_leapfrogs)
     return dict(rec=rec, t_enter=t_enter, out={k: v.cpu() if isinstance(v, torch.Tensor) else v
                                                for k, v in out.items()})
@@ -2714,8 +2863,9 @@ def mesh_report(label, ranks, ref, t_start, card):
 
     for r, res in enumerate(ranks):
         for name, (need, banned) in MESH_NEED.items():
-            check_launches(f"mesh {label} rank {r} {name}", res["rec"][name]["counts"],
-                           need, banned)
+            if name in res["rec"]:
+                check_launches(f"mesh {label} rank {r} {name}", res["rec"][name]["counts"],
+                               need, banned)
         if r > 0:
             for k, v in res["out"].items():
                 if (not torch.equal(v, ranks[0]["out"][k]) if isinstance(v, torch.Tensor)
@@ -2723,7 +2873,7 @@ def mesh_report(label, ranks, ref, t_start, card):
                     raise AssertionError(f"mesh {label}: rank {r}'s {k} is not rank 0's")
     got = ranks[0]["out"]
     errs = {k: check_close(f"mesh {label} {k}", got[k], ref[k], *tol)
-            for k, tol in MESH_TOL.items()}
+            for k, tol in MESH_TOL.items() if k in ref}
     if got["stages"] != ref["stages"] or got["leapfrogs"] != ref["leapfrogs"]:
         raise AssertionError(f"mesh {label}: SMC stages / HMC leapfrogs "
                              f"{got['stages']} / {got['leapfrogs']}, in-process "
@@ -2742,16 +2892,17 @@ def mesh_report(label, ranks, ref, t_start, card):
 
 def mesh_phase(card):
     """Sample sharding over a mesh (gigalens_tpu_torch.parallel) on the
-    card: mesh_run three ways on mesh_observation() -- (a) in this process
-    with mesh=None, (b) one nccl rank, (c) two gloo ranks sharing cuda:0
-    (nccl refuses two ranks on one card) -- spawned by
-    parallel.spawn_ranks (start method spawn, a file rendezvous) after step
-    2's build, so the ranks only load the kernels, (b) and (c) side by
-    side; each configuration checked by mesh_report, HMC from (a)'s
-    surrogate. A hang, a rank's failure or the phase outlasting
-    MESH_TIMEOUT raises after the ranks are stopped. The walls and busy
-    shares printed are three ranks sharing one card: not a scaling
-    number."""
+    card: mesh_run on mesh_observation() -- (a) in this process with
+    mesh=None, (b) one nccl rank, (c) two gloo ranks sharing cuda:0 (nccl
+    refuses two ranks on one card); (a') in this process and (d) two gloo
+    ranks at MESH_FEW rows (12 a rank: MAP, HMC and SMC) -- the ranks
+    spawned by parallel.spawn_ranks (start method spawn, a file
+    rendezvous) after step 2's build, so they only load the kernels, (b),
+    (c) and (d) side by side; (b) and (c) checked against (a), (d) against
+    (a') by mesh_report, HMC from (a)'s surrogate. A hang, a rank's failure
+    or the phase outlasting MESH_TIMEOUT raises after the ranks are
+    stopped. The walls and busy shares printed are five ranks sharing one
+    card: not a scaling number."""
     from gigalens_tpu_torch.parallel import spawn_ranks
 
     t_phase = time.perf_counter()
@@ -2768,29 +2919,36 @@ def mesh_phase(card):
     one = mesh_run(None, obs)
     ref = one["out"]
     summary = {"(a) in-process": mesh_report("(a) in-process", [one], ref, t0, card)}
-    print(f"mesh (a) in-process: done {time.perf_counter() - t_phase:.1f} s into the phase",
-          flush=True)
-    # (b) and (c) side by side, each spawn_ranks call on a thread of its own
-    configs = (("(b) 1 nccl rank", 1, "nccl"), ("(c) 2 gloo ranks", 2, "gloo"))
     q_ref = (ref["mean"], ref["scale_tril"])
+    few_label = f"(a') in-process, {MESH_FEW} rows"
+    t0 = time.time()
+    few = mesh_run(None, obs, MESH_FEW, q_ref, MESH_FEW)
+    summary[few_label] = mesh_report(few_label, [few], few["out"], t0, card)
+    print(f"mesh (a), (a'): done {time.perf_counter() - t_phase:.1f} s into the phase",
+          flush=True)
+    # (b), (c) and (d) side by side, each spawn_ranks call on a thread of its own
+    configs = (("(b) 1 nccl rank", 1, "nccl", (obs, MESH_HMC[0], q_ref), ref),
+               ("(c) 2 gloo ranks", 2, "gloo", (obs, MESH_HMC[0], q_ref), ref),
+               (f"(d) 2 gloo ranks, {MESH_FEW // 2} rows a rank", 2, "gloo",
+                (obs, MESH_FEW, q_ref, MESH_FEW), few["out"]))
     t0 = time.time()
     with concurrent.futures.ThreadPoolExecutor(len(configs)) as pool:
         timeout = left()
-        runs = [pool.submit(spawn_ranks, mesh_run, nprocs, backend, "cuda:0",
-                            args=(obs, MESH_HMC[0], q_ref), timeout=timeout)
-                for _, nprocs, backend in configs]
+        runs = [pool.submit(spawn_ranks, mesh_run, nprocs, backend, "cuda:0", args=args,
+                            timeout=timeout)
+                for _, nprocs, backend, args, _ in configs]
         ranks = [r.result() for r in runs]
-    for (label, _, _), rk in zip(configs, ranks):
-        summary[label] = mesh_report(label, rk, ref, t0, card)
-    print(f"mesh (b), (c): done {time.perf_counter() - t_phase:.1f} s into the phase",
+    for (label, _, _, _, want), rk in zip(configs, ranks):
+        summary[label] = mesh_report(label, rk, want, t0, card)
+    print(f"mesh (b), (c), (d): done {time.perf_counter() - t_phase:.1f} s into the phase",
           flush=True)
     wall = time.perf_counter() - t_phase
     print(f"mesh JSON: {json.dumps(dict(summary, card=card, phase_s=round(wall, 1)))}",
           flush=True)
     if wall > MESH_TIMEOUT:
         raise AssertionError(f"mesh phase took {wall:.1f} s, over {MESH_TIMEOUT} s")
-    print(f"mesh phase: {wall:.1f} s; (b) and (c) equal (a) at the stated tolerances",
-          flush=True)
+    print(f"mesh phase: {wall:.1f} s; (b) and (c) equal (a), (d) equals (a'), at the stated "
+          "tolerances", flush=True)
 
 
 def render_rows(params, sim, gen, phase, where):
@@ -2895,6 +3053,17 @@ def main(argv=()):
         print(json.dumps({"partial": True, "kernels": []}))
         return 0
 
+    if "--cluster" in argv:
+        # a development aid: steps 10 and 10b alone; no ok line follows
+        counts, timed, state = cluster_phase()
+        post_counts, post_kernels = cluster_posterior_phase(*state)
+        counts.update(post_counts)
+        print(card)
+        print(json.dumps({"partial": True, "kernels": [
+            {k: v for k, v in dict(kern, launches=counts[kern["phase"]][kern["key"]]).items()
+             if k not in ("key", "phase")} for kern in timed() + post_kernels()]}))
+        return 0
+
     if "--inversion" in argv:
         # a development aid: the inversion phase alone; no ok line follows
         kernels, counts = inversion_phase()
@@ -2924,13 +3093,17 @@ def main(argv=()):
         smc_res, smc_profile = smc_phase(pipe, rec)
         positions_phase(pipe)
         survey.check()
-        cluster_counts, cluster_timed = cluster_phase()
+        cluster_counts, cluster_timed, cluster_state = cluster_phase()
+        survey.check()
+        posterior_counts, posterior_kernels = cluster_posterior_phase(*cluster_state)
         survey_kernels, survey_counts = survey.finish()
     smc_profile()
     kernels += pipeline_kernel_checks(pipe, smc_res)
     counts.update(svi=rec["svi"]["counts"], hmc=rec["hmc"]["counts"], smc=rec["smc"]["counts"])
     kernels += cluster_timed()
     counts.update(cluster_counts)
+    kernels += posterior_kernels()
+    counts.update(posterior_counts)
     kernels += survey_kernels
     counts.update(survey_counts)
     inversion_kernels, inversion_counts = inversion_phase()
@@ -2940,7 +3113,8 @@ def main(argv=()):
     # launches: each kernel's count in the phase of its row (K1-K4 the bench
     # scene's MAP, K5 and K7 family S's, K6 and K7-components family L's;
     # the rows at the SVI, HMC and SMC shapes the pipeline's SVI, HMC and
-    # SMC phases; the cluster rows the cluster MAP's, SMC's and lstsq MAP's;
+    # SMC phases; the cluster rows the cluster MAP's, SMC's and lstsq MAP's,
+    # step 10b's the dpie SVI's and HMC's and the sie MAP's;
     # the survey rows the survey MAP's (the direct K4: all S scenes' launches);
     # the inversion K4 rows one bs-32 forward + gradient evaluation's;
     # the chain K4 at the wide PSF the chain MAP phase's, and at the bench

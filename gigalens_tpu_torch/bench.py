@@ -17,6 +17,11 @@ preconditioned moves, ESS threshold 0.6, up to 200 stages, 100 post steps,
 seed 1, prior start, pixels target) and an ``smc`` block in the JSON line;
 the default run's keys and ``value`` are unchanged.
 
+With ``--cluster sie|dpie|both`` it runs config #5's full posterior
+instead (:func:`run_cluster`, the counterpart of
+``scripts/bench_cluster_posterior.py``: the same scene, phases, flags and
+JSON line, ``metric`` ``cluster_full_posterior``).
+
 Knobs: ``GIGALENS_BENCH_SCALE`` (tiny | small | full), ``GIGALENS_BENCH_SVI_STEPS``,
 ``GIGALENS_BENCH_HMC_SEEDS`` (comma-separated), ``GIGALENS_EPL_NITER``,
 ``GIGALENS_LAPLACE_METHOD`` (fd | exact), ``GIGALENS_BASELINE_S``.
@@ -48,6 +53,7 @@ import os
 import sys
 import time
 import traceback
+import types
 
 import numpy as np
 import torch
@@ -205,6 +211,159 @@ def survey_scene(n_scenes, num_pix=60, supersample=SUPERSAMPLE, device="cuda"):
     noise = np.random.default_rng(1).normal(size=imgs.shape).astype(np.float32)
     obs = imgs + noise * np.sqrt(BKG**2 + np.clip(imgs, 0, None) / EXP_TIME)
     return prior, phys, cfg, obs.astype(np.float32)
+
+
+# config #5's cluster scene (scripts/bench_cluster_posterior.py:86-190):
+# the image, noise and position errors, the dpie series' expansion point
+# (the prior mean) and the fit's phase sizes (its run_pipeline, :192-316)
+CL_DELTA, CL_NMAX, CL_ORDER = 0.2, 4, 3
+CL_BKG, CL_EXP_TIME, CL_POS_ERR = 0.1, 500.0, 0.1
+CL_CONSTS = dict(r_cut=1.5, r_core=0.08)
+CL_DEPTHS = dict(num_pix=48, map_n=128, map_steps=400, vi_n=256, vi_steps=400)
+CL_CHI2, CL_RHAT = (0.85, 1.15), 1.02  # the script's gates (:295-298)
+
+
+def cluster_catalogue(n=20, spread=6.0, e_max=0.2):
+    """The member catalogue of scripts/bench_cluster_posterior.py (numpy
+    seeded 0): luminosities in [0.3, 3], centres N(0, ``spread``),
+    ellipticities uniform in +-``e_max``."""
+    rng = np.random.default_rng(0)
+    return dict(lum=rng.uniform(0.3, 3.0, n).astype(np.float32),
+                center_x=rng.normal(0, spread, n).astype(np.float32),
+                center_y=rng.normal(0, spread, n).astype(np.float32),
+                e1=rng.uniform(-e_max, e_max, n).astype(np.float32),
+                e2=rng.uniform(-e_max, e_max, n).astype(np.float32))
+
+
+def cluster_psf():
+    """The script's 9x9 Gaussian PSF (sigma sqrt(2) native pixels)."""
+    g = np.exp(-((np.arange(9) - 4) ** 2 + (np.arange(9)[:, None] - 4) ** 2) / 4.0)
+    return (g / g.sum()).astype(np.float32)
+
+
+def cluster_members(kind, galaxies=20):
+    """The member stack of one arm: ``"sie"``, ScalingRelation(NIE) with
+    theta_E ~ L^0.5 and a fixed 0.05" core a member; ``"dpie"``,
+    DPIESubhaloSeries of order 3. Chunks of min(galaxies, 16) members."""
+    from gigalens_tpu_torch.profiles.mass import NIE, DPIESubhaloSeries, ScalingRelation
+
+    cat = cluster_catalogue(galaxies)
+    chunk = min(galaxies, 16)
+    if kind == "sie":
+        cat = dict(cat, s_scale=np.full(galaxies, 0.05, np.float32))
+        return ScalingRelation(NIE(), ["theta_E"], lum_star=1.0,
+                               scaling_params_power={"theta_E": 0.5}, galaxy_catalogue=cat,
+                               chunk_size=chunk)
+    if kind == "dpie":
+        return DPIESubhaloSeries(lum_star=1.0, galaxy_catalogue=cat, order=CL_ORDER,
+                                 chunk_size=chunk)
+    raise ValueError(f"cluster members are 'sie' or 'dpie', not {kind!r}")
+
+
+def cluster_prior(kind, amplitudes=True):
+    """The script's prior: the NFW_ELLIPSE halo's, the members' theta_E
+    (and dpie's r_cut), the source's beta and centre, and with
+    ``amplitudes`` the 15 Shapelets(4) amplitudes N(0, 5)."""
+    from gigalens_tpu_torch.prob import Prior
+    from gigalens_tpu_torch.prob import distributions as d
+    from gigalens_tpu_torch.profiles.light import Shapelets
+
+    members = dict(theta_E=d.LogNormal(math.log(0.3), 0.3))
+    if kind == "dpie":
+        members["r_cut"] = d.LogNormal(math.log(1.5), 0.2)
+    src = dict(beta=d.LogNormal(math.log(0.4), 0.2), center_x=d.Normal(0, 0.3),
+               center_y=d.Normal(0, 0.3))
+    if amplitudes:
+        src.update({a: d.Normal(0, 5.0) for a in Shapelets(CL_NMAX)._amp_names})
+    return Prior(dict(
+        lens_mass=[dict(Rs=d.LogNormal(math.log(10.0), 0.2),
+                        alpha_Rs=d.LogNormal(math.log(4.0), 0.3), e1=d.Normal(0, 0.1),
+                        e2=d.Normal(0, 0.1), center_x=d.Normal(0, 0.5),
+                        center_y=d.Normal(0, 0.5)),
+                   members],
+        source_light=[src]))
+
+
+def cluster_scene(kind, galaxies=20, seed=3, source="sampled", device="cuda", num_pix=48,
+                  truth=None):
+    """Config #5's cluster scene, one arm (``kind`` ``"sie"`` or
+    ``"dpie"``; scripts/bench_cluster_posterior.py:86-190): an NFW_ELLIPSE
+    halo, ``galaxies`` luminosity-scaled members (:func:`cluster_members`)
+    and a Shapelets(4) source, ``num_pix`` px at 0.2", supersample 2, the
+    9x9 Gaussian PSF, bkg 0.1, exp_time 500. The dpie series is expanded at
+    the prior-mean point (r_cut 1.5, r_core 0.08) on the image grid. The
+    truth is a prior draw (amplitudes sampled) from a ``torch.Generator``
+    seeded 5 on ``device`` (torch cannot replay the script's JAX key 5), or
+    ``truth``, a parameter tree of numbers; it is rendered by the port, and
+    the noise is numpy's seeded ``seed``. The images of the true source come from
+    ``utils.find_images``; with two or more, the ``"sampled"`` fit is a
+    ForwardProbModel on pixels and those positions (0.1" errors). With
+    ``source="lstsq"`` the fit solves the 15 amplitudes by weighted least
+    squares a sample (``Shapelets(4, use_lstsq=True)``) in a
+    BackwardProbModel, which takes no positions. Returns a namespace: the
+    arm's ``kind``, ``galaxies`` and ``source``; the fit's ``phys``,
+    ``prior`` and ``prob`` model; the simulator config ``cfg``; the
+    ``members`` stack; the ``truth`` (a one-row parameter tree); the
+    observation ``obs`` (numpy); the traced ``images`` ((x, y, mu) numpy
+    arrays of the true source's images); the series precompute's wall
+    ``precompute_s`` (dpie; 0 for sie)."""
+    from gigalens_tpu_torch import PhysicalModel, SimulatorConfig
+    from gigalens_tpu_torch.model import BackwardProbModel, ForwardProbModel
+    from gigalens_tpu_torch.profiles.light import Shapelets
+    from gigalens_tpu_torch.profiles.mass import NFW_ELLIPSE
+    from gigalens_tpu_torch.simulator import LensSimulator
+    from gigalens_tpu_torch.utils import find_images
+
+    if source not in ("sampled", "lstsq"):
+        raise ValueError(f"source is 'sampled' or 'lstsq', not {source!r}")
+    device = torch.device(device)
+    members = cluster_members(kind, galaxies)
+    phys = PhysicalModel([NFW_ELLIPSE(), members], [], [Shapelets(CL_NMAX)])
+    prior = cluster_prior(kind)
+    cfg = SimulatorConfig(delta_pix=CL_DELTA, num_pix=num_pix, supersample=2,
+                          kernel=cluster_psf())
+    probe = LensSimulator(phys, cfg, bs=1, device=device)
+    precompute_s = 0.0
+    if kind == "dpie":
+        members.set_constants(CL_CONSTS)
+        members.set_grid(probe.img_x, probe.img_y)
+        _sync(device)
+        t0 = time.perf_counter()
+        members.set_deriv()
+        _sync(device)
+        precompute_s = time.perf_counter() - t0
+        log(f"[{kind}] series precompute {precompute_s:.1f}s")
+
+    if truth is None:
+        truth = prior.sample(torch.Generator(device=device).manual_seed(5), 1)
+    else:
+        truth = {g: [{k: torch.tensor([v], dtype=torch.float32, device=device)
+                      for k, v in p.items()} for p in ps] for g, ps in truth.items()}
+    with torch.no_grad():
+        clean = probe.simulate(truth).cpu().numpy()
+    noise = np.random.default_rng(seed).normal(size=clean.shape).astype(np.float32)
+    obs = (clean + noise * np.sqrt(CL_BKG**2 + np.clip(clean, 0, None) / CL_EXP_TIME)
+           ).astype(np.float32)
+    src = truth["source_light"][0]
+    images = find_images(probe, truth["lens_mass"], float(src["center_x"][0]),
+                         float(src["center_y"][0]), search_window=4.0)
+    log(f"[{kind}] {len(images[0])} multiple images traced")
+    if source == "lstsq":
+        phys = PhysicalModel([NFW_ELLIPSE(), members], [], [Shapelets(CL_NMAX, use_lstsq=True)])
+        prior = cluster_prior(kind, amplitudes=False)
+        prob = BackwardProbModel(prior, obs, background_rms=CL_BKG, exp_time=CL_EXP_TIME,
+                                 device=device)
+    else:
+        kw = {}
+        if len(images[0]) >= 2:
+            err = np.full(len(images[0]), CL_POS_ERR, np.float32)
+            kw = dict(centroids_x=[images[0]], centroids_y=[images[1]],
+                      centroids_errors_x=[err], centroids_errors_y=[err])
+        prob = ForwardProbModel(prior, obs, background_rms=CL_BKG, exp_time=CL_EXP_TIME,
+                                device=device, **kw)
+    return types.SimpleNamespace(kind=kind, galaxies=galaxies, source=source, phys=phys,
+                                 prior=prior, prob=prob, cfg=cfg, members=members, truth=truth,
+                                 obs=obs, images=images, precompute_s=precompute_s)
 
 
 def observe(img, gen, bkg=BKG, exp_time=EXP_TIME):
@@ -469,6 +628,198 @@ def main(cfg=None, device="cuda", smc=False) -> int:
     return 0 if result["complete"] else 1
 
 
+class ClusterRun:
+    """The fit of one arm of config #5 on a :func:`cluster_scene`, as
+    scripts/bench_cluster_posterior.py's ``run_pipeline`` (:192-316) runs
+    it: :meth:`phase_map` (multi-start MAP, polynomial schedule), then for
+    HMC :meth:`phase_svi` (the FD Laplace at the best start by log_prob,
+    then full-rank SVI) and :meth:`phase_hmc`, or :meth:`phase_smc` from
+    the prior; then :meth:`phase_report` (ESS, split-R-hat, the pixel
+    red-chi2 of the last draw, theta_E* against the truth, the gates).
+    ``row`` is the JSON line's row. ``hook(name)``, if given, returns a
+    context manager entered around each phase's timed piece."""
+
+    def __init__(self, scene, device="cuda", hook=None):
+        from gigalens_tpu_torch.inference import ModellingSequence
+
+        self.scene, self.device = scene, torch.device(device)
+        self.hook = hook or (lambda name: contextlib.nullcontext())
+        self.seq = ModellingSequence(scene.phys, scene.prob, scene.cfg, device=self.device)
+        n_pos = len(scene.images[0]) if getattr(scene.prob, "include_positions", False) else 0
+        self.row = dict(members=scene.kind, galaxies=scene.galaxies, source=scene.source,
+                        positions=n_pos)
+
+    def _sim(self, bs):
+        """A fast-path simulator (the fused render and, on the card, the
+        direct K4) for a batch of ``bs``, as the script's ``LensSimulator``."""
+        from gigalens_tpu_torch.simulator import LensSimulator
+
+        return LensSimulator(self.scene.phys, self.scene.cfg, bs=bs, device=self.device)
+
+    def phase_map(self, n=CL_DEPTHS["map_n"], steps=CL_DEPTHS["map_steps"]):
+        from gigalens_tpu_torch.inference.sequence import map_optimizer
+
+        with self.hook("map"):
+            t0 = time.perf_counter()
+            z_map = self.seq.MAP(map_optimizer(steps), n_samples=n, num_steps=steps, seed=0)
+            _sync(self.device)
+            t_map = time.perf_counter() - t0
+        self.set_map(z_map, t_map)
+
+    def set_map(self, z_map, t_map):
+        """Takes a MAP result ``z_map`` (its wall ``t_map``): scores it on
+        the fast path (log_prob, the pixel red-chi2's minimum)."""
+        prior, prob = self.scene.prior, self.scene.prob
+        sim = self._sim(z_map.shape[0])
+        with torch.no_grad():
+            self.lps = prob.log_prob(sim, z_map)[0]
+            chi2 = prob.stats_pixels(sim, prior.constrain(z_map))[1]
+        self.z_map = z_map
+        self.row["t_map"] = t_map
+        self.row["map_red_chi2"] = _nanmin(chi2)
+        log(f"[{self.scene.kind}] MAP {t_map:.1f}s best red-chi2 {self.row['map_red_chi2']:.3f}")
+
+    def phase_svi(self, n_vi=CL_DEPTHS["vi_n"], steps=CL_DEPTHS["vi_steps"]):
+        """The FD Laplace at the best MAP start, then SVI; the Laplace's
+        wall is inside ``t_svi``, as in the script."""
+        from gigalens_tpu_torch.inference.sequence import svi_optimizer
+
+        with self.hook("svi"):
+            t0 = time.perf_counter()
+            lps = torch.where(torch.isnan(self.lps), -torch.inf, self.lps)
+            best = self.z_map[torch.argmax(lps)][None, :]
+            L0 = self.seq.laplace_scale_tril(best)
+            self.t_laplace = time.perf_counter() - t0
+            self.q_z, losses = self.seq.SVI(best, svi_optimizer(steps), n_vi=n_vi,
+                                            num_steps=steps, init_scales=L0, seed=1)
+            _sync(self.device)
+            self.row["t_svi"] = time.perf_counter() - t0
+        log(f"[{self.scene.kind}] SVI {self.row['t_svi']:.1f}s (Laplace {self.t_laplace:.1f}s) "
+            f"elbo {float(losses[-1]):.1f}")
+
+    def phase_hmc(self, n_hmc=50, burnin=500, results=750, traj="chees", init_l=8,
+                  mass_windows=1, seed=3):
+        with self.hook("hmc"):
+            t0 = time.perf_counter()
+            res = self.seq.HMC(self.q_z, n_hmc=n_hmc, num_burnin_steps=burnin,
+                               num_results=results, seed=seed, trajectory_adaptation=traj,
+                               init_l=init_l, mass_adaptation=mass_windows)
+            _sync(self.device)
+            self.row["t_hmc"] = time.perf_counter() - t0
+        self.res, self.samples = res, res.samples
+        self.row.update(accept=float(res.accept_rate[-100:].mean()),
+                        divergent_chain_steps=int(res.divergences.sum()),
+                        leapfrogs=int(res.total_leapfrogs))
+
+    def phase_smc(self, particles=1000, results=750, seed=3):
+        """Tempered SMC from the prior on pixels (10 leapfrogs a move,
+        ``results`` post steps); no surrogate, so ``t_svi`` is 0. Its
+        leapfrogs are the moves' and the post chain's."""
+        self.row["t_svi"] = 0.0
+        with self.hook("smc"):
+            t0 = time.perf_counter()
+            res = self.seq.SMC(num_particles=particles, num_ensembles=1, num_leapfrog_steps=10,
+                               post_sampling_steps=results, target="pixels", auxiliar="none",
+                               seed=seed, segment_stages=1)
+            _sync(self.device)
+            self.row["t_hmc"] = time.perf_counter() - t0
+        self.res, self.samples = res, res.post_samples
+        self.row.update(smc_stages=res.num_stages,
+                        log_evidence=float(res.log_evidence[0]),
+                        final_beta=float(res.final_beta[0]), accept=1.0,
+                        divergent_chain_steps=0,
+                        leapfrogs=(res.num_moves + results) * 10)
+
+    def phase_report(self):
+        from gigalens_tpu_torch.utils import effective_sample_size, potential_scale_reduction
+
+        scene, row, samples = self.scene, self.row, self.samples
+        with self.hook("report"):
+            ess = effective_sample_size(samples)
+            rhat = potential_scale_reduction(samples)
+            row.update(min_ess=float(ess.min()), max_rhat=float(rhat.max()),
+                       ess_per_sec=float(ess.min()) / row["t_hmc"])
+            # the PIXEL red-chi2: log_prob's averages in the position term
+            with torch.no_grad():
+                chi2 = scene.prob.stats_pixels(self._sim(samples.shape[1]),
+                                               scene.prior.constrain(samples[-1]))[1]
+            row["posterior_red_chi2"] = float(torch.mean(chi2))
+            row["total_s"] = row["t_map"] + row["t_svi"] + row["t_hmc"]
+            te = scene.prior.constrain(samples.reshape(-1, samples.shape[-1]))
+            te = te["lens_mass"][1]["theta_E"]
+            row["theta_E_star"] = dict(true=float(scene.truth["lens_mass"][1]["theta_E"][0]),
+                                       mean=float(te.mean()), std=float(te.std()))
+            row["gates"] = dict(chi2_ok=CL_CHI2[0] <= row["posterior_red_chi2"] <= CL_CHI2[1],
+                                rhat_ok=row["max_rhat"] <= CL_RHAT)
+        log(f"[{scene.kind}] {'SMC' if 'smc_stages' in row else 'HMC'} {row['t_hmc']:.1f}s "
+            f"minESS {row['min_ess']:.0f} maxRhat {row['max_rhat']:.3f} post-chi2 "
+            f"{row['posterior_red_chi2']:.3f} gates {row['gates']}")
+
+
+def run_cluster(kind, galaxies=20, hmc=50, burnin=500, results=750, seed=3, traj="chees",
+                init_l=8, mass_windows=1, sampler="hmc", particles=1000, source="sampled",
+                device="cuda", num_pix=CL_DEPTHS["num_pix"], map_n=CL_DEPTHS["map_n"],
+                map_steps=CL_DEPTHS["map_steps"], vi_n=CL_DEPTHS["vi_n"],
+                vi_steps=CL_DEPTHS["vi_steps"], hook=None, truth=None):
+    """One arm of config #5 end to end (scripts/bench_cluster_posterior.py's
+    ``run_pipeline`` with its flags as arguments, and the phase sizes it
+    fixes, ``num_pix`` to ``vi_steps``, and :func:`cluster_scene`'s
+    ``truth``, as keywords); returns the
+    :class:`ClusterRun`, whose ``row`` is the JSON line's row (with the
+    sampler's host ms a leapfrog and, on the card, the peak device memory
+    of the run in GiB). A phase that fails raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device (pass device='cpu', or --device cpu, "
+                           "to run on the CPU)")
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    scene = cluster_scene(kind, galaxies=galaxies, seed=seed, source=source, device=device,
+                          num_pix=num_pix, truth=truth)
+    run = ClusterRun(scene, device=device, hook=hook)
+    run.phase_map(map_n, map_steps)
+    if sampler == "smc":
+        run.phase_smc(particles, results, seed)
+    else:
+        run.phase_svi(vi_n, vi_steps)
+        run.phase_hmc(hmc, burnin, results, traj, init_l, mass_windows, seed)
+    run.phase_report()
+    run.row["ms_per_leapfrog"] = 1e3 * run.row["t_hmc"] / max(run.row["leapfrogs"], 1)
+    if device.type == "cuda":
+        run.row["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    return run
+
+
+def cluster_main(kinds=("sie", "dpie"), device="cuda", **kw) -> int:
+    """Runs :func:`run_cluster` for each arm in ``kinds`` (keywords passed
+    on) and prints one JSON line, the script's: ``metric``
+    ``cluster_full_posterior``, ``unit``, ``value`` (the median
+    ``total_s``), ``device``, ``runs``, plus ``complete``. Returns 0 only
+    if every arm completed; an arm that raises is logged with its
+    traceback and ends the run."""
+    rows, failures = [], []
+    for kind in kinds:
+        try:
+            rows.append(run_cluster(kind, device=device, **kw).row)
+        except Exception as e:
+            log_failure(f"CLUSTER {kind} FAILED:\n{traceback.format_exc(limit=8)}")
+            failures.append(dict(members=kind, error=f"{type(e).__name__}: {str(e)[:500]}"))
+            break
+    if failures and _grouped():
+        raise RuntimeError(f"rank {dist.get_rank()}: cluster {failures[0]['members']} failed")
+    device = torch.device(device)
+    out = {"metric": "cluster_full_posterior", "unit": "s",
+           "value": round(float(np.median([r["total_s"] for r in rows])), 2) if rows else None,
+           "device": (torch.cuda.get_device_name(device) if device.type == "cuda"
+                      and torch.cuda.is_available() else str(device)),
+           "runs": rows, "complete": not failures}
+    if failures:
+        out["failed"] = failures
+    if _rank() == 0:
+        print(json.dumps(out), flush=True)
+    return 0 if not failures else 1
+
+
 def _cli(argv):
     import argparse
 
@@ -476,9 +827,39 @@ def _cli(argv):
     ap.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     ap.add_argument("--smc", action="store_true",
                     help="also run SMC and add its block to the JSON line")
+    cl = ap.add_argument_group(
+        "config #5's cluster full posterior (scripts/bench_cluster_posterior.py's flags)")
+    cl.add_argument("--cluster", choices=["sie", "dpie", "both"],
+                    help="run the cluster arms instead of the bench pipeline")
+    cl.add_argument("--galaxies", type=int, default=20)
+    cl.add_argument("--hmc", type=int, default=50)
+    cl.add_argument("--burnin", type=int, default=500)
+    cl.add_argument("--results", type=int, default=750)
+    cl.add_argument("--seed", type=int, default=3)
+    cl.add_argument("--traj", default="chees", choices=["chees", "static"],
+                    help="trajectory adaptation (static uses --init-l leapfrogs)")
+    cl.add_argument("--init-l", type=int, default=8)
+    cl.add_argument("--mass-windows", type=int, default=1,
+                    help="Stan-style warmup covariance re-estimations")
+    cl.add_argument("--sampler", default="hmc", choices=["hmc", "smc"])
+    cl.add_argument("--particles", type=int, default=1000)
+    cl.add_argument("--source", default="sampled", choices=["sampled", "lstsq"],
+                    help="shapelet amplitudes sampled (Forward) or solved by weighted "
+                         "lstsq (Backward)")
     args = ap.parse_args(argv)
+
+    def run(device):
+        if args.cluster is None:
+            return main(device=device, smc=args.smc)
+        kinds = ["sie", "dpie"] if args.cluster == "both" else [args.cluster]
+        return cluster_main(kinds, device=device, galaxies=args.galaxies, hmc=args.hmc,
+                            burnin=args.burnin, results=args.results, seed=args.seed,
+                            traj=args.traj, init_l=args.init_l,
+                            mass_windows=args.mass_windows, sampler=args.sampler,
+                            particles=args.particles, source=args.source)
+
     if "RANK" not in os.environ:
-        return main(device=args.device, smc=args.smc)
+        return run(args.device)
     # under torchrun: one process a device, every phase's samples sharded
     # over the world group (ModellingSequence's default mesh)
     device = torch.device(args.device)
@@ -487,7 +868,7 @@ def _cli(argv):
         torch.cuda.set_device(device)
     dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
     try:
-        return main(device=device, smc=args.smc)
+        return run(device)
     finally:
         dist.destroy_process_group()
 

@@ -16,8 +16,11 @@ phase's samples over its ranks, one process a device: the batch counts
 are rounded to multiples of the mesh size as the JAX package rounds them,
 each phase simulator is built at one rank's share, and every phase
 returns the global result on every rank, so the caller's code is the same
-for one rank and many (the numbers agree with one process's to float32
-rounding; :mod:`gigalens_tpu_torch.parallel.mesh` says where bitwise).
+for one rank and many. MAP, HMC and SMC on N ranks equal one process's
+bit for bit at any rows a rank (the per-row reductions that round by the
+rows a call holds run at the global row count); SVI's all-reduced gradient
+agrees to float32 rounding (:mod:`gigalens_tpu_torch.parallel.mesh` says
+which models were measured).
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ from gigalens_tpu_torch.utils.summary import summarize_posterior
 
 
 def phase_simulator(cache: dict, sim_config, phys_model, bs: int,
-                    exact: bool = False, device=None) -> LensSimulator:
+                    exact: bool = False, device=None, mesh=None) -> LensSimulator:
     """Memoized phase simulator. ``exact=True`` (the HMC/SMC path) pins the
     auto PSF mode to the FFT: the JAX package measured its DFT-by-matmul
     path (single bf16 pass on the TPU) at ~0.3 nats of likelihood noise,
@@ -50,16 +53,19 @@ def phase_simulator(cache: dict, sim_config, phys_model, bs: int,
     A memo hit requires the SAME config/model objects (identity, plus the
     model's attribute version), so rebinding either after a phase call never
     reuses a simulator built from the old configuration. ``device=None`` is
-    the CUDA card (:func:`~gigalens_tpu_torch.model.resolve_device`)."""
+    the CUDA card (:func:`~gigalens_tpu_torch.model.resolve_device`).
+    ``mesh``: ``bs`` is one rank's share of the mesh's global batch (see
+    :class:`LensSimulator`)."""
     device = resolve_device(device)
-    key = (bs, exact, str(device), getattr(phys_model, "_version", 0))
+    mesh = mesh if mesh is not None and mesh.size > 1 else None
+    key = (bs, exact, str(device), getattr(phys_model, "_version", 0), id(mesh))
     hit = cache.get(key)
-    if hit is not None and hit[0] is sim_config and hit[1] is phys_model:
+    if hit is not None and hit[0] is sim_config and hit[1] is phys_model and hit[2].mesh is mesh:
         return hit[2]
     cfg = sim_config
     if exact and cfg.psf_mode is None and cfg.use_fft is None:
         cfg = dataclasses.replace(cfg, psf_mode="fft")
-    sim = LensSimulator(phys_model, cfg, bs=bs, device=device)
+    sim = LensSimulator(phys_model, cfg, bs=bs, device=device, mesh=mesh)
     cache[key] = (sim_config, phys_model, sim)
     return sim
 
@@ -108,7 +114,7 @@ class ModellingSequence:
         rank's share); see :func:`phase_simulator` for the exact/fast
         PSF-path policy."""
         return phase_simulator(self._sims, self.sim_config, self.phys_model,
-                               bs // self.mesh.size, exact, self.device)
+                               bs // self.mesh.size, exact, self.device, self.mesh)
 
     def _round(self, n: int, what: str) -> int:
         return pmesh.round_to_multiple(n, self.mesh.size, what)

@@ -104,7 +104,7 @@ class SurveySequence:
         rank's share); see :func:`phase_simulator` for the exact/fast
         PSF-path policy."""
         return phase_simulator(self._sims, self.sim_config, self.phys_model,
-                               bs // self.mesh.size, exact, self.device)
+                               bs // self.mesh.size, exact, self.device, self.mesh)
 
     def _per_scene(self, k: int, what: str) -> int:
         """Rounds a per-scene count so every scene's rows divide the mesh."""

@@ -23,6 +23,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+import gigalens_tpu_torch.parallel.mesh as pmesh
 from gigalens_tpu_torch.cosmology import FlatLambdaCDM, multiplane_factors
 from gigalens_tpu_torch.prob.prior import Prior
 from gigalens_tpu_torch.profiles.base import LightProfile, MassProfile
@@ -36,6 +37,32 @@ def resolve_device(device) -> torch.device:
             raise RuntimeError('no CUDA device: pass device="cpu" to run on the CPU')
         device = "cuda"
     return torch.device(device)
+
+
+def pixel_reduce(simulator, fn, x, scenes=None):
+    """``fn(x)`` for a reduction ``fn`` over the pixel axes (-2, -1) of
+    ``x`` (``simulator``'s rows, one image each, or ``(scenes, K, H, W)``),
+    evaluated at the global row count when ``simulator`` is a mesh rank's
+    shard (its ``mesh``; :func:`~gigalens_tpu_torch.parallel.mesh.at_global_rows`):
+    the card splits each row's sum among a block's threads by the number
+    of rows a call holds, so a shard's rows would round otherwise than one
+    process's. Without a mesh it is ``fn(x)``."""
+    mesh = getattr(simulator, "mesh", None)
+    if mesh is None or mesh.size == 1:
+        return fn(x)
+    lead, img = x.shape[:-2], x.shape[-2:]
+    if scenes is None:
+        rows = x.reshape(simulator.bs, *img)  # a squeezed batch of one included
+        return pmesh.at_global_rows(fn, rows, mesh).reshape(lead)
+    return pmesh.at_global_rows(fn, x, mesh, dim=1)
+
+
+def _pixel_sum(t):
+    return torch.sum(t, dim=(-2, -1))
+
+
+def _pixel_mean(t):
+    return torch.mean(t, dim=(-2, -1))
 
 
 class VersionedAttrs:
@@ -299,10 +326,12 @@ class ForwardProbModel(VersionedAttrs, _SamplerFacade):
             )
         mask = simulator.img_region
         resid = (im_sim - self.observed_image) / err_map
-        chi2 = torch.sum(resid**2 * mask, dim=(-2, -1))
-        normalization = torch.sum(
-            torch.log(2 * math.pi * err_map**2) * mask, dim=(-2, -1)
-        )
+        chi2 = pixel_reduce(simulator, _pixel_sum, resid**2 * mask)
+        normalization = torch.log(2 * math.pi * err_map**2) * mask
+        if self.error_map is None:  # a map a row
+            normalization = pixel_reduce(simulator, _pixel_sum, normalization)
+        else:
+            normalization = _pixel_sum(normalization)
         log_like = -0.5 * (chi2 + normalization)
         return log_like, chi2 / simulator.n_live_pix
 
@@ -494,8 +523,12 @@ class SurveyForwardProbModel(ForwardProbModel):
             err_map = torch.sqrt(self.background_rms**2 + torch.clamp(im, min=0.0) / self.exp_time)
         mask = simulator.img_region
         resid = (im - obs) / err_map
-        chi2 = torch.sum(resid**2 * mask, dim=(-2, -1))  # (S, K)
-        normalization = torch.sum(torch.log(2 * math.pi * err_map**2) * mask, dim=(-2, -1))
+        chi2 = pixel_reduce(simulator, _pixel_sum, resid**2 * mask, S)  # (S, K)
+        normalization = torch.log(2 * math.pi * err_map**2) * mask
+        if self.error_map is None:  # a map a row
+            normalization = pixel_reduce(simulator, _pixel_sum, normalization, S)
+        else:
+            normalization = _pixel_sum(normalization)
         log_like = -0.5 * (chi2 + normalization)
         return log_like.reshape(S * K), (chi2 / simulator.n_live_pix).reshape(S * K)
 
@@ -548,8 +581,8 @@ class BackwardProbModel(VersionedAttrs, _SamplerFacade):
         im_sim = simulator.lstsq_simulate(params, self.observed_image, self.err_map)
         resid = (im_sim - self.observed_image) / self.err_map
         chi2_pix = resid**2
-        log_like = -0.5 * torch.sum(chi2_pix, dim=(-2, -1)) + self._log_norm
-        return log_like, torch.mean(chi2_pix, dim=(-2, -1))
+        log_like = -0.5 * pixel_reduce(simulator, _pixel_sum, chi2_pix) + self._log_norm
+        return log_like, pixel_reduce(simulator, _pixel_mean, chi2_pix)
 
     def stats_positions(self, simulator, params):
         raise NotImplementedError(
@@ -605,5 +638,5 @@ class SurveyBackwardProbModel(BackwardProbModel):
         im = im.reshape(S, -1, *self.observed_image.shape[-2:])
         resid = (im - self.observed_image[:, None]) / self.err_map[:, None]
         chi2_pix = resid**2
-        log_like = -0.5 * torch.sum(chi2_pix, dim=(-2, -1)) + self._log_norm[:, None]
-        return log_like.reshape(-1), torch.mean(chi2_pix, dim=(-2, -1)).reshape(-1)
+        log_like = -0.5 * pixel_reduce(simulator, _pixel_sum, chi2_pix, S) + self._log_norm[:, None]
+        return log_like.reshape(-1), pixel_reduce(simulator, _pixel_mean, chi2_pix, S).reshape(-1)

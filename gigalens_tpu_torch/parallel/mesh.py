@@ -19,16 +19,22 @@ shard is itself a group-major batch of ``G`` groups. Draws are made for the
 global batch from the same seeded generator on every rank and each rank
 keeps its rows, so N ranks draw the numbers one rank draws.
 
-Parity with one rank: every rank's result equals every other rank's
-bitwise. Against one process the results agree to float32 rounding, and
-bitwise only where each per-row operation rounds the same at a rank's
-share of the rows as at all of them. SVI's gradient all-reduce adds in
-another order (to rounding). On the H100 the per-row reductions of the
-bench scene's 6,400-pixel likelihood round alike from :data:`PARITY_ROWS`
-rows a rank up and differently below (``scripts/torch_row_independence.py``);
-a sampler's chains then drift apart from one process's as they would from
-any rounding change, to the same posterior. :func:`shard_samples` warns
-when a CUDA rank holds fewer rows.
+Parity with one process: every rank's result equals every other rank's
+and one process's bitwise, wherever each per-row operation rounds the same
+at a rank's share of the rows as at all of them. Two kinds do not, and run
+at the global row count (:func:`at_global_rows`: this rank's rows among
+filler rows for the other ranks'): a batched GEMM, whose algorithm the card
+picks by the number of rows (HMC's and SMC's per-chain products), and a
+per-row sum over an image's pixels, which the card splits among a block's
+threads by the number of rows a call holds (the prob models' pixel terms
+the lstsq solve and an unfused render's parameter gradients; a phase
+simulator built for a rank carries the ``mesh`` it is a shard of).
+``scripts/torch_row_independence.py`` measures them all: on the H100 each
+row's log-density and gradient then equal one process's at 1, 2, 4 and 25
+rows a rank for the bench, survey and cluster (dpie) scenes; the lstsq
+model's gradient from 2 rows a rank. The pixelated-source model is not
+padded (to rounding). SVI's gradient all-reduce adds in another order (to
+rounding).
 
 :class:`Mesh` with ``group=None`` is the one-rank mesh: no process group,
 and every collective below returns its input. ``constrain_samples`` has no
@@ -43,7 +49,6 @@ under ``gloo``.
 from __future__ import annotations
 
 import datetime
-import math
 import os
 import shutil
 import tempfile
@@ -53,7 +58,7 @@ import warnings
 import torch
 import torch.distributed as dist
 
-from gigalens_tpu_torch.model import resolve_device
+import gigalens_tpu_torch.model as gmodel
 
 
 class Mesh:
@@ -74,19 +79,13 @@ class Mesh:
         return f"Mesh(device={self.device}, rank={self.rank}, size={self.size})"
 
 
-# the fewest rows a rank may hold for the card's per-row reductions to round
-# as at the global row count (the bench scene's likelihood on the H100:
-# bitwise at 24 and 25 rows a rank, not at 12 or 4)
-PARITY_ROWS = 24
-
-
 def _local_device():
     """The rank's device under ``torchrun``: the CUDA card ``LOCAL_RANK``,
     raising without one like :func:`~gigalens_tpu_torch.model.resolve_device`
     and when there are fewer cards than local ranks (two ranks would share
     a card, which ``nccl`` refuses)."""
     if not torch.cuda.is_available():
-        return resolve_device(None)
+        return gmodel.resolve_device(None)
     local = os.environ.get("LOCAL_RANK")
     local = dist.get_rank() if local is None else int(local)
     if local >= torch.cuda.device_count():
@@ -102,7 +101,7 @@ def default_mesh(device=None) -> Mesh:
     if dist.is_available() and dist.is_initialized():
         device = _local_device() if device is None else torch.device(device)
         return Mesh(device, dist.group.WORLD)
-    return Mesh(resolve_device(device))
+    return Mesh(gmodel.resolve_device(device))
 
 
 def _distributed(mesh) -> bool:
@@ -117,20 +116,11 @@ def _rank_rows(n, mesh, groups):
 
 
 def shard_samples(x, mesh, groups: int = 1, dim: int = 0):
-    """This rank's rows of ``x`` along ``dim`` (see the module's layout).
-    Warns when a rank on a CUDA card gets fewer than :data:`PARITY_ROWS`
-    rows (all of ``x``'s rows up to ``dim``): the results then match one
-    process's to rounding only."""
+    """This rank's rows of ``x`` along ``dim`` (see the module's layout)."""
     if mesh is None or mesh.size == 1:
         return x
     n = x.shape[dim]
     c = _rank_rows(n, mesh, groups)
-    rows = math.prod(x.shape[:dim]) * groups * c
-    if mesh.device.type == "cuda" and rows < PARITY_ROWS:
-        warnings.warn(f"{rows} rows a rank (fewer than {PARITY_ROWS}): the card's "
-                      "per-row reductions round differently than at the global row count, "
-                      "so these results match one process's to float32 rounding only",
-                      stacklevel=2)
     view = x.reshape(*x.shape[:dim], groups, n // groups, *x.shape[dim + 1:])
     out = view.narrow(dim + 1, mesh.rank * c, c)
     return out.reshape(*x.shape[:dim], groups * c, *x.shape[dim + 1:])
@@ -204,19 +194,35 @@ def sample_min(x, mesh, dim: int = 0):
 def at_global_rows(fn, x, mesh, dim: int = 0):
     """``fn(x)`` for a row-wise ``fn`` (each output row depends on its own
     input row only, along ``dim``), evaluated at the global row count:
-    this rank's rows ``x`` at their place among zero rows for the other
-    ranks'. A batched GEMM picks its algorithm, and with it every row's
+    this rank's rows ``x`` at their place among filler rows for the other
+    ranks' (:func:`pad_rows`). A batched GEMM picks its algorithm, and with it every row's
     rounding, by the number of rows (seen on the card at 1000 against 500
     particles); at the global count each row rounds as on one rank."""
     if mesh is None or mesh.size == 1:
         return fn(x)
+    return rank_rows(fn(pad_rows(x, mesh, dim)), mesh, dim)
+
+
+def pad_rows(x, mesh, dim: int = 0):
+    """This rank's rows ``x`` along ``dim`` at their place among the other
+    ranks' rows, filled with copies of its first row (finite wherever its
+    own rows are): the global row count's tensor of one group."""
+    if mesh is None or mesh.size == 1:
+        return x
     n = x.shape[dim]
 
-    def zeros(k):
-        return x.new_zeros((*x.shape[:dim], k * n, *x.shape[dim + 1:]))
+    def fill(k):
+        return x.narrow(dim, 0, 1).expand(*x.shape[:dim], k * n, *x.shape[dim + 1:])
 
-    padded = torch.cat([zeros(mesh.rank), x, zeros(mesh.size - 1 - mesh.rank)], dim=dim)
-    return fn(padded).narrow(dim, mesh.rank * n, n)
+    return torch.cat([fill(mesh.rank), x, fill(mesh.size - 1 - mesh.rank)], dim=dim)
+
+
+def rank_rows(y, mesh, dim: int = 0):
+    """The inverse of :func:`pad_rows`: this rank's rows of ``y``."""
+    if mesh is None or mesh.size == 1:
+        return y
+    n = y.shape[dim] // mesh.size
+    return y.narrow(dim, mesh.rank * n, n)
 
 
 def barrier(mesh) -> None:

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 import gigalens_tpu_torch.model as gmodel
+import gigalens_tpu_torch.parallel.mesh as pmesh
 from gigalens_tpu_torch.config import LensWCS, SimulatorConfig
 from gigalens_tpu_torch.ops.cuda import fused_builder
 from gigalens_tpu_torch.ops.cuda.fused_render import fused_render, pack_params
@@ -50,9 +51,36 @@ def _batched(p: Dict):
     return {k: v[..., None] for k, v in p.items()}
 
 
+def _lstsq_coeffs(imgs, observed_image, err_map):
+    """(n, depth) weighted least-squares amplitudes of the (depth, n, H, W)
+    component images against the (H, W) data, or against (S, H, W) data
+    with the n rows scene-major: the normal equations with a
+    pseudo-inverse (relative cutoff 1e-6, as the JAX package's
+    ``pinv(rcond=1e-6)``)."""
+    depth, n = imgs.shape[:2]
+    ret = imgs.permute(1, 2, 3, 0)  # (n, H, W, depth)
+    if observed_image.ndim == 3:  # scene-batched data
+        S = observed_image.shape[0]
+        Wm = (1.0 / err_map)[:, None, ..., None]  # (S, 1, H, W, 1)
+        Y = (observed_image / err_map).reshape(S, 1, -1, 1)
+        X = (ret.reshape(S, n // S, *ret.shape[1:]) * Wm).reshape(S, n // S, -1, depth)
+    else:
+        W = (1.0 / err_map)[..., None]  # (H, W, 1)
+        Y = (observed_image * W[..., 0]).reshape(1, -1, 1)
+        X = (ret * W).reshape(n, -1, depth)
+    Xt = X.transpose(-1, -2)
+    return (torch.linalg.pinv(Xt @ X, rtol=1e-6) @ (Xt @ Y))[..., 0].reshape(n, depth)
+
+
 class LensSimulator(gmodel.VersionedAttrs):
     """Batched differentiable lens simulator for a fixed camera, batch size
-    and device (``None``: the CUDA card; ``"cpu"`` must be asked for)."""
+    and device (``None``: the CUDA card; ``"cpu"`` must be asked for).
+
+    ``mesh`` (:class:`~gigalens_tpu_torch.parallel.Mesh`): the batch is
+    this rank's shard of a global batch of ``bs * mesh.size`` rows, and the
+    per-row reductions over pixels (the prob models', the lstsq solve's and
+    the unfused render's parameter gradients) run at the global row count,
+    so each row rounds as in one process."""
 
     def __init__(
         self,
@@ -60,10 +88,12 @@ class LensSimulator(gmodel.VersionedAttrs):
         sim_config: SimulatorConfig,
         bs: int,
         device=None,
+        mesh=None,
     ):
         self.phys_model = phys_model
         self.sim_config = sim_config
         self.bs = int(bs)
+        self.mesh = mesh
         self.device = gmodel.resolve_device(device)
         self.supersample = int(sim_config.supersample)
         self.wcs = LensWCS(
@@ -344,6 +374,28 @@ class LensSimulator(gmodel.VersionedAttrs):
             out = fused_render(pack_params(fp), self.img_x, self.img_y, self._fused_niter)
             return torch.broadcast_to(out, (self.bs, npix))
 
+        mesh = self.mesh
+        if mesh is not None and mesh.size > 1:
+            # the unfused render's parameter gradients are autograd's sums
+            # over the supersampled pixels, which the card splits among
+            # blocks by the number of rows: render at the global row count
+            # (this rank's rows among copies of its first row) and keep them
+            view = copy.copy(self)
+            view.bs, view.mesh = self.bs * mesh.size, None
+
+            def pad(v):
+                if not isinstance(v, torch.Tensor) or v.dim() == 0 or v.shape[0] != self.bs:
+                    return v
+                return pmesh.pad_rows(v, mesh)
+
+            def pad_group(ps):
+                return [{k: pad(v) for k, v in p.items()} for p in ps]
+
+            padded = ({g: pad_group(ps) for g, ps in params.items()}
+                      if isinstance(params, dict) else pad_group(params))
+            out = view._flat_light(padded, no_deflection, stack_components)
+            return pmesh.rank_rows(out, mesh, dim=out.dim() - 2)
+
         x, y = self.img_x, self.img_y
         lens_params = self._get(params, "lens_mass", self.phys_model.lenses)
         beta_x, beta_y = (x, y) if no_deflection else self.beta(x, y, lens_params)
@@ -449,24 +501,24 @@ class LensSimulator(gmodel.VersionedAttrs):
         stacked = self._flat_light(params, no_deflection=no_deflection,
                                    stack_components=True)  # (depth, bs, npix)
         imgs = self._postprocess(self._place(stacked))  # (depth, bs, H, W)
-        ret = imgs.permute(1, 2, 3, 0)  # (bs, H, W, depth)
         if return_stacked:
-            return ret
-        if observed_image.ndim == 3:  # scene-batched data
-            S = observed_image.shape[0]
-            if self.bs % S:
-                raise ValueError(f"batch {self.bs} is not a multiple of {S} scenes")
-            K = self.bs // S
-            Wm = (1.0 / err_map)[:, None, ..., None]  # (S, 1, H, W, 1)
-            Y = (observed_image / err_map).reshape(S, 1, -1, 1)
-            X = (ret.reshape(S, K, *ret.shape[1:]) * Wm).reshape(S, K, -1, self.depth)
+            return imgs.permute(1, 2, 3, 0)
+        S = observed_image.shape[0] if observed_image.ndim == 3 else 1
+        if self.bs % S:
+            raise ValueError(f"batch {self.bs} is not a multiple of {S} scenes")
+        mesh = self.mesh
+        if mesh is None or mesh.size == 1:
+            coeffs = _lstsq_coeffs(imgs, observed_image, err_map)
         else:
-            W = (1.0 / err_map)[..., None]  # (H, W, 1)
-            Y = (observed_image * W[..., 0]).reshape(1, -1, 1)
-            X = (ret * W).reshape(self.bs, -1, self.depth)
-        Xt = X.transpose(-1, -2)
-        coeffs = (torch.linalg.pinv(Xt @ X, rtol=1e-6) @ (Xt @ Y))[..., 0]
+            # at the global row count, each scene's rows among filler rows for
+            # the other ranks': the batched GEMMs and the pseudo-inverse
+            # pick their algorithms by the number of rows
+            rows = imgs.reshape(imgs.shape[0], S, self.bs // S, *imgs.shape[2:])
+            full = pmesh.pad_rows(rows, mesh, dim=2).flatten(1, 2)
+            coeffs = _lstsq_coeffs(full, observed_image, err_map)
+            coeffs = pmesh.rank_rows(coeffs.reshape(S, -1, self.depth), mesh, dim=1)
         coeffs = coeffs.reshape(self.bs, self.depth)
+        ret = imgs.permute(1, 2, 3, 0)  # (bs, H, W, depth)
         if return_coeffs:
             return coeffs
         out = torch.sum(ret * coeffs[:, None, None, :], dim=-1)

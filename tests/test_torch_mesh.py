@@ -18,7 +18,6 @@ import json
 import os
 import subprocess
 import sys
-import warnings
 from pathlib import Path
 
 import jax
@@ -37,7 +36,7 @@ from gigalens_tpu.profiles.light.sersic import SersicEllipse as JSersicEllipse
 from gigalens_tpu.profiles.mass.epl import EPL as JEPL
 from gigalens_tpu.profiles.mass.shear import Shear as JShear
 from gigalens_tpu_torch.interop import prior_from_reference, sim_config_from_reference
-from gigalens_tpu_torch.parallel import Mesh, round_to_multiple, shard_samples, spawn_ranks
+from gigalens_tpu_torch.parallel import Mesh, round_to_multiple, spawn_ranks
 from gigalens_tpu_torch.parallel import mesh as pmesh
 from gigalens_tpu_torch.simulator import LensSimulator
 
@@ -91,7 +90,7 @@ def runs(inputs, tmp_path_factory):
     obs, start = inputs
     work = tmp_path_factory.mktemp("mesh")
     jobs = lambda sub: [("collectives", ()), ("demo", (obs, start, str(work / sub))),  # noqa
-                        ("bench", (MICRO,))]
+                        ("bench", (MICRO,)), ("few_rows", (obs, start[0]))]
     (work / "one").mkdir()
     (work / "two").mkdir()
     two = spawn_ranks(ranks.run, 2, "gloo", "cpu", args=(jobs("two"),), timeout=300,
@@ -111,22 +110,88 @@ def test_round_to_multiple():
     assert round_to_multiple(16, 8) == 16
 
 
-def test_few_rows_a_rank_warn_on_a_card():
-    """A CUDA rank holding fewer than PARITY_ROWS rows (counting the
-    leading axes) warns that its results match one process's only to
-    rounding; at PARITY_ROWS, or on the CPU, it does not. The mesh is
-    built by hand: no card or process group is needed."""
-    x = torch.zeros(48, 3)
-    card, cpu = Mesh("cuda:0"), Mesh("cpu")
-    for m in (card, cpu):
-        m.rank, m.size = 1, 2
-    with pytest.warns(UserWarning, match="12 rows a rank"):
-        shard_samples(x[:24], card)
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")
-        assert shard_samples(x, card).shape == (pmesh.PARITY_ROWS, 3)
-        shard_samples(x.reshape(4, 12, 3), card, dim=1)
-        shard_samples(x[:4], cpu)
+def test_pixel_reduce_runs_at_the_global_row_count():
+    """A mesh rank's simulator evaluates the prob models' per-row pixel
+    reductions at the global row count: its rows at their place among zero
+    rows, as rank r of the layout (a ``Mesh`` with no process group), for a
+    plain batch, a squeezed batch of one and a scene-major survey batch.
+    The reduction here tells row counts apart, so any other placement
+    fails; without a mesh it sees the rows it is given."""
+    from gigalens_tpu_torch.model import pixel_reduce
+
+    def fn(t):  # a row's sum plus the number of rows the call holds
+        return t.sum(dim=(-2, -1)) + 1000.0 * t.shape[-3]
+
+    x = torch.arange(24 * 4, dtype=torch.float32).reshape(24, 2, 2)
+    sim = LensSimulator.__new__(LensSimulator)
+    sim.mesh, sim.bs = None, 24
+    torch.testing.assert_close(pixel_reduce(sim, fn, x), fn(x), rtol=0, atol=0)
+    mesh = Mesh("cpu")
+    for size, rank in ((4, 0), (4, 3), (24, 5)):
+        mesh.rank, mesh.size = rank, size
+        n = 24 // size
+        sim.mesh, sim.bs = mesh, n
+        rows = x[rank * n:(rank + 1) * n]
+        got = pixel_reduce(sim, fn, rows.squeeze(0) if n == 1 else rows)
+        torch.testing.assert_close(got.reshape(n), fn(x)[rank * n:(rank + 1) * n], rtol=0, atol=0)
+        assert got.shape == (() if n == 1 else (n,))
+    # survey: 3 scenes of 8 rows, each rank holding 8 / size rows of every scene
+    scenes = x.reshape(3, 8, 2, 2)
+    for size, rank in ((2, 1), (4, 2)):
+        mesh.rank, mesh.size = rank, size
+        n = 8 // size
+        sim.mesh, sim.bs = mesh, 3 * n
+        rows = scenes[:, rank * n:(rank + 1) * n]
+        torch.testing.assert_close(pixel_reduce(sim, fn, rows, 3),
+                                   fn(scenes)[:, rank * n:(rank + 1) * n], rtol=0, atol=0)
+
+
+@pytest.fixture(scope="module")
+def row_checks():
+    """tests/torch_mesh_ranks.py's per-row checks, run once in a process of
+    their own whose CPU kernels are ATen's plain ones
+    (``ATEN_CPU_CAPABILITY=default``): the vectorized kernels compute an
+    element of a batch's tail (past its last full SIMD vector) with other
+    code than the rest, so on this CPU a row's transcendentals round by its
+    place in the batch. The card computes every element alike; the plain
+    kernels leave what the port's own code does with the row count."""
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, ATEN_CPU_CAPABILITY="default", OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([str(root), os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run([sys.executable, str(root / "tests" / "torch_mesh_ranks.py"), "rows"],
+                          capture_output=True, text=True, timeout=120, env=env)
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("model", ["forward", "backward", "survey_forward", "survey_backward"])
+def test_rows_at_any_count_equal_a_48_row_call(row_checks, model):
+    """Each prob model's per-row log_prob and z-gradient at k = 1, 2, 4, 12
+    and 24 rows (a scene, for the two-scene survey models) on a simulator
+    that is rank 0 and the last rank of a mesh of 48 / k ranks, bitwise
+    equal to the same rows in one 48-row call: the pixel sums and the lstsq
+    solve run at the global row count, so N ranks hold one process's
+    numbers at any rows a rank (pixels and four image positions for the
+    ForwardProbModel; both lights linear for the BackwardProbModel)."""
+    got = row_checks[model]
+    want = [1, 2, 4, 12] + ([24] if not model.startswith("survey") else [])
+    assert sorted(int(k) for k in got) == want
+    for k, (lp, grad) in got.items():
+        assert lp == 0.0 and grad == 0.0, (model, k, lp, grad)
+
+
+def test_hmc_at_two_rows_a_rank_two_ranks_equal_one(runs):
+    """tests/test_sharding.py:79-101 at two rows a rank: 4 chains on two
+    ranks against one process, rtol / atol 1e-4 (the same leapfrog count
+    and step size)."""
+    one, two = runs
+    got, want = two[0][3], one[3]
+    assert got["samples"].shape == want["samples"].shape == (4, 4, 22)
+    assert torch.isfinite(got["samples"]).all()
+    close(got["samples"], want["samples"], 1e-4, 1e-4)
+    close(got["eps"], want["eps"], 1e-4, 1e-6)
+    assert got["nlf"] == want["nlf"]
+    equal_trees(two[0][3], two[1][3])
 
 
 def test_local_device_needs_a_card_per_local_rank(monkeypatch):

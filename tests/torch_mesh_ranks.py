@@ -229,8 +229,108 @@ def bench_main(mesh, cfg):
     return dict(rc=rc, stdout=buf.getvalue())
 
 
+def few_rows_hmc(mesh, obs, start):
+    """HMC on the demo scene with 4 chains (2 rows a rank on two ranks) from
+    ``start`` (d,): tests/test_sharding.py:79-101's run (3 burn-in steps, 4
+    results, seed 0)."""
+    phys, cfg, prob = demo_scene(obs)
+    seq = ModellingSequence(phys, prob, cfg, mesh=mesh, device="cpu")
+    q_z = MultivariateNormalTriL(torch.as_tensor(start), torch.eye(prob.prior.d) * 1e-3)
+    res = seq.HMC(q_z, n_hmc=4, num_burnin_steps=3, num_results=4, seed=0)
+    return _tree(dict(samples=res.samples, eps=res.step_size, nlf=res.total_leapfrogs))
+
+
 SCENARIOS = dict(collectives=collectives, demo=demo_phases, survey=survey_phases,
-                 inversion=inversion_map, bench=bench_main)
+                 inversion=inversion_map, bench=bench_main, few_rows=few_rows_hmc)
+
+# rows of the per-row checks: ROW_GLOBAL rows in one call against k rows a
+# call (a scene, for the survey models, of ROW_SCENES scenes)
+ROW_GLOBAL, ROW_SCENES = 48, 2
+ROW_COUNTS = (1, 2, 4, 12, 24)
+
+
+def row_models():
+    """(name, prob model, phys, sim_config, scenes) of each prob model of
+    the per-row checks: the demo scene scored on pixels and four image
+    positions (ForwardProbModel), the same with both lights linear
+    (BackwardProbModel), and the survey catalogue of two scenes with a
+    sampled source (SurveyForwardProbModel) and a linear one
+    (SurveyBackwardProbModel); observations drawn with numpy seeded 7."""
+    from gigalens_tpu_torch.model import BackwardProbModel, SurveyBackwardProbModel
+
+    rng = np.random.default_rng(7)
+    obs = rng.normal(1.0, 0.3, (20, 20)).astype(np.float32)
+    phys, cfg, _ = demo_scene(obs)
+    cx, cy = np.array([0.9, -0.8, 0.2, -0.3], np.float32), np.array([0.3, -0.2, 1.0, -0.9],
+                                                                     np.float32)
+    err = np.full(4, 0.05, np.float32)
+    fwd = ForwardProbModel(demo_prior(), obs, background_rms=BKG, exp_time=EXP_TIME,
+                           centroids_x=[cx], centroids_y=[cy], centroids_errors_x=[err],
+                           centroids_errors_y=[err], device="cpu")
+    lin = PhysicalModel([EPL(18), Shear()], [SersicEllipse(use_lstsq=True)],
+                        [SersicEllipse(use_lstsq=True)])
+    prior = demo_prior()
+    lin_prior = Prior(dict(
+        lens_mass=prior.tree["lens_mass"],
+        lens_light=[{k: v for k, v in prior.tree["lens_light"][0].items() if k != "Ie"}],
+        source_light=[{k: v for k, v in prior.tree["source_light"][0].items() if k != "Ie"}]))
+    bwd = BackwardProbModel(lin_prior, obs, background_rms=BKG, exp_time=EXP_TIME, device="cpu")
+    s_phys, s_cfg = survey_scene()
+    s_obs = rng.normal(1.0, 0.3, (ROW_SCENES, 24, 24)).astype(np.float32)
+    s_fwd = SurveyForwardProbModel(survey_prior(), s_obs, background_rms=BKG,
+                                   exp_time=EXP_TIME, device="cpu")
+    s_lin = PhysicalModel([SIE(), Shear()], [], [SersicEllipse(use_lstsq=True)])
+    sp = survey_prior()
+    s_lin_prior = Prior(dict(
+        lens_mass=sp.tree["lens_mass"],
+        source_light=[{k: v for k, v in sp.tree["source_light"][0].items() if k != "Ie"}]))
+    s_bwd = SurveyBackwardProbModel(s_lin_prior, s_obs, background_rms=BKG, exp_time=EXP_TIME,
+                                    device="cpu")
+    return [("forward", fwd, phys, cfg, 1), ("backward", bwd, lin, cfg, 1),
+            ("survey_forward", s_fwd, s_phys, s_cfg, ROW_SCENES),
+            ("survey_backward", s_bwd, s_lin, s_cfg, ROW_SCENES)]
+
+
+def row_checks():
+    """Each of :func:`row_models`' per-row log_prob and z-gradient at k
+    rows (a scene) against the same rows in one call of ROW_GLOBAL rows:
+    the k-row call on a simulator that is rank 0 and the last rank of a
+    mesh of ROW_GLOBAL / k ranks (a ``Mesh`` with no process group: the
+    layout only). Returns {model: {k: (max |log_prob diff|, max |grad
+    diff|)}}."""
+    from gigalens_tpu_torch.parallel import Mesh
+    from gigalens_tpu_torch.simulator import LensSimulator
+
+    out = {}
+    for name, prob, phys, cfg, S in row_models():
+        z = torch.as_tensor(np.random.default_rng(8).standard_normal(
+            (ROW_GLOBAL, prob.prior.d)).astype(np.float32) * 0.3)
+        K = ROW_GLOBAL // S
+
+        def call(zz, mesh=None):
+            sim = LensSimulator(phys, cfg, bs=zz.shape[0], device="cpu", mesh=mesh)
+            zz = zz.clone().requires_grad_(True)
+            lp = prob.log_prob(sim, zz)[0]
+            (g,) = torch.autograd.grad(lp.sum(), zz)
+            return lp.detach(), g
+
+        def rows(t, k, r):
+            return t.reshape(S, K, -1)[:, r * k:(r + 1) * k].reshape(S * k, -1).squeeze(-1)
+
+        whole = call(z)
+        out[name] = {}
+        for k in ROW_COUNTS:
+            if k >= K:
+                continue
+            errs = [0.0, 0.0]
+            for r in (0, K // k - 1):
+                mesh = Mesh("cpu")
+                mesh.rank, mesh.size = r, K // k
+                for i, (a, b) in enumerate(zip(call(rows(z, k, r), mesh), whole)):
+                    errs[i] = max(errs[i], float((a.reshape(S * k, -1).squeeze(-1)
+                                                  - rows(b, k, r)).abs().max()))
+            out[name][k] = tuple(errs)
+    return out
 
 
 def run(mesh, jobs):
@@ -259,7 +359,11 @@ def bench_failing_rank(argv):
 
 
 if __name__ == "__main__":
+    import json
     import sys
 
     torch.set_num_threads(1)
+    if sys.argv[1:] == ["rows"]:
+        print(json.dumps(row_checks()))
+        sys.exit(0)
     sys.exit(bench_failing_rank(sys.argv[1:]))
