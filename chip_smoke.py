@@ -7,7 +7,7 @@
                                       # launch counts, and no ok line follows
     python3 chip_smoke.py --inversion # steps 1, 2 and 12 only, the same kind of aid
     python3 chip_smoke.py --mesh      # steps 1, 2 and 13 only, the same kind of aid
-    python3 chip_smoke.py --cluster   # steps 1, 2, 10 and 10b only, the same kind of aid
+    python3 chip_smoke.py --cluster   # steps 1, 2, 10, 10b and 10c only, the same kind of aid
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the hand-written kernels from gigalens_tpu_torch/csrc/ with nvcc
@@ -106,6 +106,16 @@
    1.15] (divergences, split-R-hat and ESS printed); then K5/K7 at the
    dpie SVI's and HMC's batches (256, 50) and the direct K4 at (256, 96,
    96) and (1,920, 96, 96) against their twins.
+10c. Runs the repairs of the port's last results that differed from the JAX
+   package on config #5's scenes at the JAX script's own truth
+   (gigalens_tpu_torch.bench.CL_JAX_TRUTH): the sie arm's MAP at step
+   10b's depth (128 x 150), the FD Laplace and its full SVI (256 x 400,
+   F-ref-7: the lstsq solve in float64, where the JAX package's float32
+   solve climbs, with JAX's derivative of the pseudo-inverse), gated on every loss finite, the last at or below the
+   first and 256 surrogate draws with finite log-densities (the direct K4
+   both ways); and the dpie arm's MAP (128 x 400) from the JAX script's own
+   starts (bench.CL_JAX_STARTS), gated on best pixel
+   red-chi2 <= 1.10 (K5/K7 and the direct K4 exactly once a step each).
 11. Runs survey mode on scripts/bench_survey_production.py's catalogue at
    full width (gigalens_tpu_torch.bench.survey_scene: 4 scenes, 60 px at
    0.065", supersample 2, one PSF a scene, the bench prior and model)
@@ -148,19 +158,23 @@
    tests/test_sharding.py's tolerances (HMC from the in-process surrogate);
    and below the rows where the card's per-row pixel sums round by the
    rows a call holds: MAP 24 starts, HMC 24 chains and SMC 24 particles in
-   this process and on two gloo ranks (12 rows a rank), held alike; every
-   rank's launch counters by the pipeline's rules, the phase inside
-   MESH_TIMEOUT.
+   this process and on two gloo ranks (12 rows a rank), held alike; and
+   (e) the pixelated-source model (step 12's scene) and config #5's sie
+   arm (lstsq source) at 1 row a rank on two gloo ranks: log_prob, its
+   z-gradient and 3 MAP steps, held to this process's 2-row run at
+   tests/test_inversion.py:240-257's tolerances (the largest difference
+   printed); every rank's launch counters by the pipeline's rules, the
+   phase inside MESH_TIMEOUT.
 14. Ends with the card line, a JSON line of per-kernel results and the ok
    line.
 
-Step 11 runs in a second process (spawned) beside steps 6-8 and steps 10
-and 10b's sampling, which are host-bound like it. Every measurement made
+Step 11 runs in a second process (spawned) beside steps 6-8 and steps 10,
+10b's sampling and 10c, which are host-bound like it. Every measurement made
 for the record (the stage profiles of steps 7, 10 and 11, step 9, steps
 10's, 10b's and 11's kernels rows, the hot loop) waits until the card is
 one process's: step 11's until the main process has sampled step 10b, the
 main process's until step 11's process has ended. The walls of the
-sampling phases of steps 6-8, 10, 10b and 11 are taken beside the other
+sampling phases of steps 6-8, 10, 10b, 10c and 11 are taken beside the other
 process.
 
 Every phase raises on failure (nothing is caught; step 11's process is
@@ -2043,6 +2057,89 @@ def cluster_posterior_kernels(runs):
     return kernels
 
 
+# step 10c: the repairs of the port's last results that differed from the
+# JAX package, on config #5's scenes at the JAX script's own truth
+# (bench.CL_JAX_TRUTH): the sie arm's lstsq SVI
+# (F-ref-7) at full width and depth after a MAP at step 10b's depth, and
+# the dpie arm's MAP from the script's own 128 starts at full depth
+CL_10C_VI_STEPS = 400
+CL_10C_MAP_CHI2 = 1.10  # JAX: 1.065 from these starts; the port's own starts: 1.170
+
+
+def cluster_repairs_phase():
+    """Step 10c. sie (lstsq source, no positions) at the JAX truth: MAP
+    CL_MAP_N x CL_SIE_MAP_STEPS, the FD Laplace at the best start, SVI
+    CL_VI_N x CL_10C_VI_STEPS (the float64 solve and JAX's derivative of
+    the pseudo-inverse, F-ref-7), gated on every loss finite, the last at
+    or below the first, and CL_VI_N draws of the surrogate with finite
+    log-densities; the direct K4 both ways in SVI. dpie at the JAX truth:
+    MAP CL_MAP_N x CL_MAP_STEPS from bench.CL_JAX_STARTS
+    (the K5/K7 and the direct K4 exactly once a step each), gated on best
+    pixel red-chi2 <= CL_10C_MAP_CHI2. Returns the launch counts by
+    phase."""
+    import torch
+
+    from gigalens_tpu_torch import bench
+    from gigalens_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    counts = {}
+
+    @contextlib.contextmanager
+    def counted(name):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        counts[name] = launch_counts()
+        print(f"step 10c {name}: {time.perf_counter() - t0:.2f} s, launches "
+              f"{json.dumps(counts[name])}", flush=True)
+
+    sie = bench.cluster_scene("sie", source="lstsq", device=dev, truth=bench.CL_JAX_TRUTH["sie"])
+    run = bench.ClusterRun(sie, device=dev, hook=lambda name: counted(f"cluster_sie_jax_{name}"))
+    run.phase_map(CL_MAP_N, CL_SIE_MAP_STEPS)
+    run.phase_svi(CL_VI_N, CL_10C_VI_STEPS)
+    z = run.q_z.sample(torch.Generator(device=dev).manual_seed(0), CL_VI_N)
+    with torch.no_grad():
+        lp = sie.prob.log_prob(run._sim(CL_VI_N), z)[0]
+    losses = run.losses.cpu()
+    n_fin = int(torch.isfinite(lp).sum())
+    print(f"step 10c sie lstsq SVI at the JAX truth ({CL_VI_N} x {CL_10C_VI_STEPS}): losses "
+          f"every 40 steps {[round(float(v), 2) for v in losses[::40]]}, last "
+          f"{float(losses[-1]):.2f}; finite log-densities at {n_fin} of {CL_VI_N} draws",
+          flush=True)
+    if not torch.isfinite(losses).all():
+        raise AssertionError("step 10c: the sie SVI's losses are not all finite")
+    if not losses[-1] <= losses[0]:
+        raise AssertionError(f"step 10c: the sie SVI's last loss {float(losses[-1])} is above "
+                             f"its first {float(losses[0])}")
+    if not (torch.isfinite(z).all() and n_fin == CL_VI_N):
+        raise AssertionError("step 10c: the sie surrogate's draws are not all finite")
+    check_launches("step 10c sie SVI", counts["cluster_sie_jax_svi"],
+                   ("direct_conv_fwd", "direct_conv_transpose"),
+                   BUILDER_ROUTE_BANNED + BUILDER_BANNED)
+
+    dpie = bench.cluster_scene("dpie", device=dev, truth=bench.CL_JAX_TRUTH["dpie"])
+    run = bench.ClusterRun(dpie, device=dev, hook=lambda name: counted(f"cluster_dpie_jax_{name}"))
+    run.phase_map(steps=CL_MAP_STEPS, start=bench.cluster_jax_starts(dev))
+    chi2 = run.row["map_red_chi2"]
+    print(f"step 10c dpie MAP from the JAX script's starts ({CL_MAP_N} x {CL_MAP_STEPS}): best "
+          f"pixel red-chi2 {chi2:.4f} in {run.row['t_map']:.2f} s (JAX: 1.065)", flush=True)
+    n = CL_MAP_STEPS
+    check_launches("step 10c dpie MAP", counts["cluster_dpie_jax_map"],
+                   banned=BUILDER_ROUTE_BANNED + ("fused_builder_fwd_components", "dft_conv_fwd",
+                                                  "dft_conv_transpose"),
+                   exact=dict(fused_builder_fwd_sum=n, fused_builder_bwd=n, direct_conv_fwd=n,
+                              direct_conv_transpose=n))
+    if not chi2 <= CL_10C_MAP_CHI2:
+        raise AssertionError(f"step 10c: the dpie MAP's best red-chi2 {chi2} > "
+                             f"{CL_10C_MAP_CHI2}")
+    print(f"step 10c: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts
+
+
 # the survey phase: scripts/bench_survey_production.py's catalogue at full
 # width (4 scenes, 60 px at 0.065", supersample 2, a PSF of its own a scene)
 # through SurveySequence: MAP, Laplace, SVI, grouped HMC, a short SMC and a
@@ -2836,6 +2933,73 @@ def mesh_run(mesh, obs, n_hmc=MESH_HMC[0], q_ref=None, rows=None):
                                                for k, v in out.items()})
 
 
+# (e): the models below one process's per-row rounding at 1 row a rank:
+# the pixelated-source model (the inversion scene) and config #5's sie arm
+# (lstsq source, torch-seeded truth): log_prob and its z-gradient at
+# prior draws, then MAP steps from them; held to one process at
+# tests/test_inversion.py:240-257's tolerances, the largest difference
+# printed (0.0: bitwise)
+MESH_ROWS_MAP_STEPS = 3
+MESH_ROWS_TOL = (1e-4, 1e-5)
+
+
+def mesh_rows(mesh):
+    """(e)'s results on one rank (1 row of 2) or, with ``mesh=None``, in
+    this process (2 rows): per model, log_prob, its z-gradient and the MAP
+    after MESH_ROWS_MAP_STEPS steps, at the 2 global rows (the ranks'
+    gathered)."""
+    import torch
+
+    from gigalens_tpu_torch import bench
+    from gigalens_tpu_torch.inference import ModellingSequence
+    from gigalens_tpu_torch.inference.sequence import map_optimizer
+    from gigalens_tpu_torch.inversion import PixelatedSourceProbModel, SourceGrid
+    from gigalens_tpu_torch.parallel import mesh as pmesh
+    from gigalens_tpu_torch.simulator import LensSimulator
+
+    dev = torch.device("cuda", 0) if mesh is None else mesh.device
+    inv = inversion_scene(dev)
+    inv_model = PixelatedSourceProbModel(inv["prior"], inv["obs"], background_rms=INV_BKG,
+                                         exp_time=INV_EXP_TIME,
+                                         grid=SourceGrid(INV_NSIDE, INV_EXTENT), lam=None,
+                                         device=dev)
+    sie = bench.cluster_scene("sie", source="lstsq", device=dev)
+    out = {}
+    for name, phys, cfg, model in (("inversion", inv["phys"], inv["cfg"], inv_model),
+                                   ("sie_lstsq", sie.phys, sie.cfg, sie.prob)):
+        prior = model.prior
+        z = prior.unconstrain(prior.sample(torch.Generator(device=dev).manual_seed(3), 2))
+        rows = pmesh.shard_samples(z, mesh).clone().requires_grad_(True)
+        sim = LensSimulator(phys, cfg, bs=rows.shape[0], device=dev, mesh=mesh)
+        lp = model.log_prob(sim, rows)[0]
+        (g,) = torch.autograd.grad(lp.sum(), rows)
+        seq = ModellingSequence(phys, model, cfg, mesh=mesh, device=dev)
+        z_map = seq.MAP(map_optimizer(MESH_ROWS_MAP_STEPS), start=z, n_samples=2,
+                        num_steps=MESH_ROWS_MAP_STEPS)
+        out[name] = dict(log_prob=pmesh.gather_samples(lp.detach(), mesh).cpu(),
+                         grad=pmesh.gather_samples(g, mesh).cpu(), map=z_map.cpu())
+    return out
+
+
+def mesh_rows_report(ref, ranks):
+    """(e): every rank's results equal rank 0's bitwise, and rank 0's the
+    in-process run's within MESH_ROWS_TOL; returns the largest difference
+    by model and result."""
+    import torch
+
+    errs = {}
+    for model, want in ref.items():
+        for k, v in want.items():
+            for r, res in enumerate(ranks[1:], 1):
+                if not torch.equal(res[model][k], ranks[0][model][k]):
+                    raise AssertionError(f"mesh (e) {model}: rank {r}'s {k} is not rank 0's")
+            errs[f"{model} {k}"] = check_close(f"mesh (e) {model} {k}", ranks[0][model][k], v,
+                                               *MESH_ROWS_TOL)
+    print(f"mesh (e) 2 gloo ranks, 1 row a rank: max |err| vs the in-process run "
+          f"{json.dumps(errs)}", flush=True)
+    return errs
+
+
 def mesh_observation():
     """The bench scene's observation of the pipeline phase (truth seeded 42,
     noise seeded 1), rendered on cuda:0, as numpy."""
@@ -2924,31 +3088,35 @@ def mesh_phase(card):
     t0 = time.time()
     few = mesh_run(None, obs, MESH_FEW, q_ref, MESH_FEW)
     summary[few_label] = mesh_report(few_label, [few], few["out"], t0, card)
-    print(f"mesh (a), (a'): done {time.perf_counter() - t_phase:.1f} s into the phase",
-          flush=True)
-    # (b), (c) and (d) side by side, each spawn_ranks call on a thread of its own
+    rows_ref = mesh_rows(None)
+    print(f"mesh (a), (a'), (e) in-process: done {time.perf_counter() - t_phase:.1f} s into "
+          "the phase", flush=True)
+    # (b), (c), (d) and (e) side by side, each spawn_ranks call on a thread of its own
     configs = (("(b) 1 nccl rank", 1, "nccl", (obs, MESH_HMC[0], q_ref), ref),
                ("(c) 2 gloo ranks", 2, "gloo", (obs, MESH_HMC[0], q_ref), ref),
                (f"(d) 2 gloo ranks, {MESH_FEW // 2} rows a rank", 2, "gloo",
                 (obs, MESH_FEW, q_ref, MESH_FEW), few["out"]))
     t0 = time.time()
-    with concurrent.futures.ThreadPoolExecutor(len(configs)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(configs) + 1) as pool:
         timeout = left()
         runs = [pool.submit(spawn_ranks, mesh_run, nprocs, backend, "cuda:0", args=args,
                             timeout=timeout)
                 for _, nprocs, backend, args, _ in configs]
+        rows_run = pool.submit(spawn_ranks, mesh_rows, 2, "gloo", "cuda:0", timeout=timeout)
         ranks = [r.result() for r in runs]
+        rows_ranks = rows_run.result()
     for (label, _, _, _, want), rk in zip(configs, ranks):
         summary[label] = mesh_report(label, rk, want, t0, card)
-    print(f"mesh (b), (c), (d): done {time.perf_counter() - t_phase:.1f} s into the phase",
+    summary["(e) 2 gloo ranks, 1 row a rank"] = mesh_rows_report(rows_ref, rows_ranks)
+    print(f"mesh (b), (c), (d), (e): done {time.perf_counter() - t_phase:.1f} s into the phase",
           flush=True)
     wall = time.perf_counter() - t_phase
     print(f"mesh JSON: {json.dumps(dict(summary, card=card, phase_s=round(wall, 1)))}",
           flush=True)
     if wall > MESH_TIMEOUT:
         raise AssertionError(f"mesh phase took {wall:.1f} s, over {MESH_TIMEOUT} s")
-    print(f"mesh phase: {wall:.1f} s; (b) and (c) equal (a), (d) equals (a'), at the stated "
-          "tolerances", flush=True)
+    print(f"mesh phase: {wall:.1f} s; (b) and (c) equal (a), (d) equals (a'), (e) its "
+          "in-process run, at the stated tolerances", flush=True)
 
 
 def render_rows(params, sim, gen, phase, where):
@@ -3044,7 +3212,10 @@ def main(argv=()):
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}", flush=True)
+    t0 = time.perf_counter()
     _build.load()
+    print(f"load: the library's key and its ctypes load in {time.perf_counter() - t0:.3f} s",
+          flush=True)
 
     if "--mesh" in argv:
         # a development aid: the mesh phase alone; no ok line follows
@@ -3058,6 +3229,7 @@ def main(argv=()):
         counts, timed, state = cluster_phase()
         post_counts, post_kernels = cluster_posterior_phase(*state)
         counts.update(post_counts)
+        cluster_repairs_phase()
         print(card)
         print(json.dumps({"partial": True, "kernels": [
             {k: v for k, v in dict(kern, launches=counts[kern["phase"]][kern["key"]]).items()
@@ -3096,6 +3268,8 @@ def main(argv=()):
         cluster_counts, cluster_timed, cluster_state = cluster_phase()
         survey.check()
         posterior_counts, posterior_kernels = cluster_posterior_phase(*cluster_state)
+        survey.check()
+        cluster_repairs_phase()
         survey_kernels, survey_counts = survey.finish()
     smc_profile()
     kernels += pipeline_kernel_checks(pipe, smc_res)

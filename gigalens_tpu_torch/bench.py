@@ -54,6 +54,7 @@ import sys
 import time
 import traceback
 import types
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -221,6 +222,36 @@ CL_BKG, CL_EXP_TIME, CL_POS_ERR = 0.1, 500.0, 0.1
 CL_CONSTS = dict(r_cut=1.5, r_core=0.08)
 CL_DEPTHS = dict(num_pix=48, map_n=128, map_steps=400, vi_n=256, vi_steps=400)
 CL_CHI2, CL_RHAT = (0.85, 1.15), 1.02  # the script's gates (:295-298)
+
+
+# the truth of scripts/bench_cluster_posterior.py's own rows: its prior's
+# draw at jax.random.PRNGKey(5) (:167), copied as float32 values (BASELINE.md's
+# theta_E* 0.352 sie, 0.358 dpie). The halo is the same draw in both arms;
+# the truth traces one image, so the script's fits take no positions.
+_CL_HALO = dict(Rs=10.866031646728516, alpha_Rs=2.644106864929199,
+                center_x=0.8548650741577148, center_y=-0.6076276898384094,
+                e1=0.09020333737134933, e2=-0.09072451293468475)
+_CL_AMPS = [2.946794271469116, -2.8893816471099854, -2.1054301261901855, -7.293202877044678,
+            1.8643121719360352, 7.970737934112549, -4.233013153076172, 4.726140022277832,
+            3.0026659965515137, 6.797476768493652, 3.4189019203186035, -6.829867839813232,
+            5.9823713302612305, 1.372706413269043, 8.919219017028809, -7.258894920349121]
+CL_JAX_TRUTH = dict(
+    sie=dict(lens_mass=[_CL_HALO, dict(theta_E=0.3515036106109619)],
+             source_light=[dict({f"amp{i:02d}": a for i, a in enumerate(_CL_AMPS[:15])},
+                                beta=0.2991989552974701, center_x=0.2494579255580902,
+                                center_y=-0.3853776752948761)]),
+    dpie=dict(lens_mass=[_CL_HALO, dict(r_cut=1.667107343673706, theta_E=0.35802045464515686)],
+              source_light=[dict({f"amp{i:02d}": a for i, a in enumerate(_CL_AMPS[1:])},
+                                 beta=0.47237342596054077, center_x=-0.3853776752948761,
+                                 center_y=-0.3011828660964966)]))
+# the script's 128 MAP starts of the dpie arm (its seq.MAP(seed=0), :209), as
+# scripts/cluster_jax_starts.py draws them with the JAX package
+CL_JAX_STARTS = Path(__file__).resolve().parents[1] / "scripts" / "cluster_dpie_jax_starts.npy"
+
+
+def cluster_jax_starts(device="cuda"):
+    """(128, 26) float32 on ``device``: :data:`CL_JAX_STARTS`."""
+    return torch.as_tensor(np.load(CL_JAX_STARTS), device=torch.device(device))
 
 
 def cluster_catalogue(n=20, spread=6.0, e_max=0.2):
@@ -656,12 +687,16 @@ class ClusterRun:
 
         return LensSimulator(self.scene.phys, self.scene.cfg, bs=bs, device=self.device)
 
-    def phase_map(self, n=CL_DEPTHS["map_n"], steps=CL_DEPTHS["map_steps"]):
+    def phase_map(self, n=CL_DEPTHS["map_n"], steps=CL_DEPTHS["map_steps"], start=None):
+        """MAP from ``n`` prior draws, or from the (n, d) ``start``."""
         from gigalens_tpu_torch.inference.sequence import map_optimizer
 
+        if start is not None:
+            n = start.shape[0]
         with self.hook("map"):
             t0 = time.perf_counter()
-            z_map = self.seq.MAP(map_optimizer(steps), n_samples=n, num_steps=steps, seed=0)
+            z_map = self.seq.MAP(map_optimizer(steps), start=start, n_samples=n,
+                                 num_steps=steps, seed=0)
             _sync(self.device)
             t_map = time.perf_counter() - t0
         self.set_map(z_map, t_map)
@@ -680,22 +715,23 @@ class ClusterRun:
         log(f"[{self.scene.kind}] MAP {t_map:.1f}s best red-chi2 {self.row['map_red_chi2']:.3f}")
 
     def phase_svi(self, n_vi=CL_DEPTHS["vi_n"], steps=CL_DEPTHS["vi_steps"]):
-        """The FD Laplace at the best MAP start, then SVI; the Laplace's
-        wall is inside ``t_svi``, as in the script."""
+        """The FD Laplace at the best MAP start (``best``, its factor
+        ``L0``), then SVI (``q_z``, ``losses``); the Laplace's wall is
+        inside ``t_svi``, as in the script."""
         from gigalens_tpu_torch.inference.sequence import svi_optimizer
 
         with self.hook("svi"):
             t0 = time.perf_counter()
             lps = torch.where(torch.isnan(self.lps), -torch.inf, self.lps)
-            best = self.z_map[torch.argmax(lps)][None, :]
-            L0 = self.seq.laplace_scale_tril(best)
+            self.best = self.z_map[torch.argmax(lps)][None, :]
+            self.L0 = self.seq.laplace_scale_tril(self.best)
             self.t_laplace = time.perf_counter() - t0
-            self.q_z, losses = self.seq.SVI(best, svi_optimizer(steps), n_vi=n_vi,
-                                            num_steps=steps, init_scales=L0, seed=1)
+            self.q_z, self.losses = self.seq.SVI(self.best, svi_optimizer(steps), n_vi=n_vi,
+                                                 num_steps=steps, init_scales=self.L0, seed=1)
             _sync(self.device)
             self.row["t_svi"] = time.perf_counter() - t0
         log(f"[{self.scene.kind}] SVI {self.row['t_svi']:.1f}s (Laplace {self.t_laplace:.1f}s) "
-            f"elbo {float(losses[-1]):.1f}")
+            f"elbo {float(self.losses[-1]):.1f}")
 
     def phase_hmc(self, n_hmc=50, burnin=500, results=750, traj="chees", init_l=8,
                   mass_windows=1, seed=3):
@@ -760,11 +796,11 @@ def run_cluster(kind, galaxies=20, hmc=50, burnin=500, results=750, seed=3, traj
                 init_l=8, mass_windows=1, sampler="hmc", particles=1000, source="sampled",
                 device="cuda", num_pix=CL_DEPTHS["num_pix"], map_n=CL_DEPTHS["map_n"],
                 map_steps=CL_DEPTHS["map_steps"], vi_n=CL_DEPTHS["vi_n"],
-                vi_steps=CL_DEPTHS["vi_steps"], hook=None, truth=None):
+                vi_steps=CL_DEPTHS["vi_steps"], hook=None, truth=None, map_start=None):
     """One arm of config #5 end to end (scripts/bench_cluster_posterior.py's
     ``run_pipeline`` with its flags as arguments, and the phase sizes it
-    fixes, ``num_pix`` to ``vi_steps``, and :func:`cluster_scene`'s
-    ``truth``, as keywords); returns the
+    fixes, ``num_pix`` to ``vi_steps``, :func:`cluster_scene`'s ``truth``
+    and the MAP's ``start``, as keywords); returns the
     :class:`ClusterRun`, whose ``row`` is the JSON line's row (with the
     sampler's host ms a leapfrog and, on the card, the peak device memory
     of the run in GiB). A phase that fails raises."""
@@ -777,7 +813,7 @@ def run_cluster(kind, galaxies=20, hmc=50, burnin=500, results=750, seed=3, traj
     scene = cluster_scene(kind, galaxies=galaxies, seed=seed, source=source, device=device,
                           num_pix=num_pix, truth=truth)
     run = ClusterRun(scene, device=device, hook=hook)
-    run.phase_map(map_n, map_steps)
+    run.phase_map(map_n, map_steps, start=map_start)
     if sampler == "smc":
         run.phase_smc(particles, results, seed)
     else:

@@ -26,6 +26,18 @@ Under autograd a chunk's backward needs only its outer product again (the
 non-reentrant checkpoint stops its recompute there: the PSF convolution
 runs once a chunk each way.
 
+On a mesh rank (a simulator with a ``mesh``) every per-row reduction runs
+as one process runs it: the ray-shooting and the lens light at the global
+row count (their parameter gradients are sums over a row's pixels), the
+mapping build in the global batch's chunks, and the Gram, Cholesky,
+solves and pixel sums on this rank's rows among filler rows for the
+others', so N ranks equal one process bit for bit. That costs a rank about
+one process's step and most of its memory (``scripts/torch_row_independence.py
+--inversion-cost``): the solve's batched GEMMs, triangular inverse and
+sums round a row by the rows a call holds (``--inversion-stages``), and
+calls of a fixed number of rows, which would spare a rank the other
+ranks' rows, slow one process's step by a third.
+
 :class:`SourceGrid`, :func:`gradient_regularizer` and :func:`_pick_chunk`
 are numpy, copied from the JAX package as they are.
 """
@@ -42,6 +54,7 @@ from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 import gigalens_tpu_torch.model as gmodel
+import gigalens_tpu_torch.parallel.mesh as pmesh
 from gigalens_tpu_torch.prob.prior import Prior
 from gigalens_tpu_torch.profiles.base import _needs_graph
 from gigalens_tpu_torch.simulator import _batched
@@ -134,6 +147,20 @@ def _pick_chunk(n_side: int, max_cols: int = 256) -> int:
 # h_ss, w_ss), the peak live intermediate of the mapping build; keyed to
 # bs, as in the JAX package.
 _CHUNK_BYTE_BUDGET = 128 * 2**20
+
+
+def _at_global_rows(sim, fn, params):
+    """``fn(sim, params)``, a tuple of (bs, ...) row-wise outputs of this
+    rank's parameter rows ``params`` (a list of per-profile dicts); under a
+    mesh evaluated on ``sim.global_view`` and cut back to this rank's rows,
+    so that autograd's sums over a row's pixels (the parameters' gradients)
+    add at the global row count."""
+    mesh = sim.mesh
+    if mesh is None or mesh.size == 1:
+        return fn(sim, params)
+    view, padded = sim.global_view(params)
+    return tuple(pmesh.rank_rows(torch.broadcast_to(t, (view.bs, *t.shape[1:])), mesh)
+                 for t in fn(view, padded))
 
 
 @contextlib.contextmanager
@@ -291,11 +318,14 @@ class PixelatedSourceProbModel(gmodel.VersionedAttrs, gmodel._SamplerFacade):
     def chunk_rows(self, simulator) -> int:
         """Source rows a step of the mapping build: ``chunk``, or the
         largest divisor of n_side whose placed block fits the byte budget
-        at the simulator's bs (at most 256 basis images)."""
+        at the simulator's global bs (at most 256 basis images): a mesh
+        rank builds its rows in one process's chunks, so that the
+        gradient's sums over a chunk's rows add alike."""
         if self.chunk is not None:
             return self.chunk
         sim = simulator
-        max_cols = max(1, _CHUNK_BYTE_BUDGET // (sim.bs * sim.h_ss * sim.w_ss * 4))
+        bs = sim.bs * (sim.mesh.size if sim.mesh is not None else 1)
+        max_cols = max(1, _CHUNK_BYTE_BUDGET // (bs * sim.h_ss * sim.w_ss * 4))
         return _pick_chunk(self.grid.n_side, min(256, int(max_cols)))
 
     def mapping_matrix(self, simulator, lens_params):
@@ -308,7 +338,7 @@ class PixelatedSourceProbModel(gmodel.VersionedAttrs, gmodel._SamplerFacade):
         sim = simulator
         g = self.grid
         npix = sim.img_x.shape[0]
-        bx, by = sim.beta(sim.img_x, sim.img_y, lens_params)
+        bx, by = _at_global_rows(sim, lambda s, p: s.beta(s.img_x, s.img_y, p), lens_params)
         bx = torch.broadcast_to(bx, (sim.bs, npix))
         by = torch.broadcast_to(by, (sim.bs, npix))
         inv_d = float(np.float32(1.0 / g.delta))
@@ -346,10 +376,14 @@ class PixelatedSourceProbModel(gmodel.VersionedAttrs, gmodel._SamplerFacade):
         profs = sim.phys_model.lens_light
         if not profs:
             return None
-        total = 0.0
-        for prof, p, c in zip(profs, params["lens_light"], sim._lens_light_constants):
-            total = total + prof.light(sim.img_x, sim.img_y, **_batched(p), **c)
-        total = torch.broadcast_to(total, (sim.bs, sim.img_x.shape[0]))
+
+        def light(s, lens_light):
+            total = 0.0
+            for prof, p, c in zip(profs, lens_light, s._lens_light_constants):
+                total = total + prof.light(s.img_x, s.img_y, **_batched(p), **c)
+            return (torch.broadcast_to(total, (s.bs, s.img_x.shape[0])),)
+
+        (total,) = _at_global_rows(sim, light, params["lens_light"])
         img = sim._postprocess(sim._place(total))
         return (img * sim.img_region).reshape(sim.bs, -1)
 
@@ -365,21 +399,38 @@ class PixelatedSourceProbModel(gmodel.VersionedAttrs, gmodel._SamplerFacade):
         sim = simulator
         g = self.grid
         C = self.mapping_matrix(sim, params["lens_mass"])
-        mask = sim.img_region
+        ll = self._lens_light_flat(sim, params)
+        lam_b = torch.broadcast_to(torch.reshape(self._lam_of(params), (-1,)), (sim.bs,))
+        rows = (C, lam_b) if ll is None else (C, lam_b, ll)
+        # the Gram, the Cholesky, the solves and the pixel sums at the global
+        # row count: the card picks their algorithms and splits each row's
+        # sums by the rows a call holds
+        mesh = sim.mesh
+        out = self._solve_rows(sim.img_region, *(pmesh.pad_rows(t, mesh) for t in rows))
+        s, model, log_marginal, chi2 = (pmesh.rank_rows(t, mesh) for t in out)
+        H_img, W_img = self.observed_image.shape
+        return dict(
+            source=s.reshape(sim.bs, g.n_side, g.n_side),
+            model_image=model.reshape(sim.bs, H_img, W_img),
+            log_marginal=log_marginal,
+            red_chi2=chi2 / sim.n_live_pix,
+        )
+
+    def _solve_rows(self, mask, C, lam_b, ll=None):
+        """The marginal solve, under the pixel ``mask``, of rows ``C`` (bs,
+        n_src, n_nat), ``lam_b`` (bs,) and the lens light ``ll`` (bs, n_nat)
+        or None: the source (bs, n_src), the model (bs, n_nat),
+        log_marginal and chi2 (bs,)."""
         w = (mask / self.error_map**2).reshape(-1)
         norm = torch.sum(torch.log(2 * math.pi * self.error_map**2) * mask)
         d = (self.observed_image * mask).reshape(-1)
-
-        ll = self._lens_light_flat(sim, params)
         d_eff = d - ll if ll is not None else d
-        lam_b = torch.broadcast_to(torch.reshape(self._lam_of(params), (-1,)), (sim.bs,))
-
         s, logdet_F, bs_dot, model, info = _Marginal.apply(C, w, d_eff, lam_b, self.H_reg)
         ok = info == 0
         nan = torch.tensor(float("nan"), dtype=s.dtype, device=s.device)
         # E_min = (d - C^T s)^T W (d - C^T s) + lam s^T H s  at  s = F^{-1} b
         quad = torch.sum(w * d_eff * d_eff, dim=-1) - bs_dot
-        k = g.n_src
+        k = self.grid.n_src
         log_marginal = -0.5 * (quad + logdet_F - k * torch.log(lam_b) - self.logdet_H + norm)
         log_marginal = torch.where(ok, log_marginal, nan)
         s = torch.where(ok[:, None], s, nan)
@@ -388,13 +439,7 @@ class PixelatedSourceProbModel(gmodel.VersionedAttrs, gmodel._SamplerFacade):
             model = model + ll
         resid = d - model
         chi2 = torch.sum(w * resid * resid, dim=-1)
-        H_img, W_img = self.observed_image.shape
-        return dict(
-            source=s.reshape(sim.bs, g.n_side, g.n_side),
-            model_image=model.reshape(sim.bs, H_img, W_img),
-            log_marginal=log_marginal,
-            red_chi2=chi2 / sim.n_live_pix,
-        )
+        return s, model, log_marginal, chi2
 
     def stats_pixels(self, simulator, params):
         out = self.solve(simulator, params)

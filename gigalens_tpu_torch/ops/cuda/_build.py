@@ -3,10 +3,14 @@
 ``nvcc`` compiles every ``gigalens_tpu_torch/csrc/*.cu`` into an object,
 one process per source, all started together, and links the objects into
 one shared library with a plain C interface, under ``build/kernels/``
-beside the package, named by a hash of the sources and flags (a changed
-source is a new library). No PyTorch headers are involved, so a build takes
-seconds. A missing ``nvcc`` or a failed compile raises with the compiler's
-output: there is no fallback.
+beside the package (``rm -rf build/kernels`` clears it), named by a hash
+of what it was built from and for (``utils/aot.py``'s contract): the
+sources, the flags and target architecture, the ``nvcc --version`` that
+compiles it, ``torch.version.cuda`` and the host platform. A changed
+source, toolchain or machine is a new library, never a stale one loaded.
+No PyTorch headers are involved, so a build takes seconds. A missing
+``nvcc`` or a failed compile raises with the compiler's output: there is
+no fallback.
 
 Fast math stays off (no ``--use_fast_math``): the kernels' tolerances
 assume IEEE ``expf``/``logf``/``sqrtf``.
@@ -24,12 +28,15 @@ from pathlib import Path
 
 import torch
 
+from gigalens_tpu_torch.utils import aot
+
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
+ARCH = "sm_90a"
 FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-gencode", f"arch=compute_{ARCH[3:]},code={ARCH}", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
 ]
 
@@ -75,13 +82,26 @@ def _sources():
     return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
 
 
+@functools.lru_cache(maxsize=None)
+def _nvcc_version(nvcc: str) -> str:
+    """What ``nvcc --version`` prints: the toolchain's release and build."""
+    return subprocess.run([nvcc, "--version"], capture_output=True, text=True,
+                          check=True).stdout
+
+
 def library_path() -> Path:
+    """The library's path for these sources, flags, architecture, ``nvcc``,
+    CUDA version of torch and platform (see the module)."""
     cu, cuh = _sources()
     h = hashlib.sha256()
     for p in cu + cuh:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(FLAGS).encode())
+    h.update(ARCH.encode())
+    h.update(_nvcc_version(_nvcc()).encode())
+    h.update(f"torch.version.cuda={torch.version.cuda}".encode())
+    h.update(aot.platform_fingerprint().encode())
     return BUILD_DIR / f"libgigalens_kernels_{h.hexdigest()[:16]}.so"
 
 

@@ -26,15 +26,16 @@ at the global row count (:func:`at_global_rows`: this rank's rows among
 filler rows for the other ranks'): a batched GEMM, whose algorithm the card
 picks by the number of rows (HMC's and SMC's per-chain products), and a
 per-row sum over an image's pixels, which the card splits among a block's
-threads by the number of rows a call holds (the prob models' pixel terms
-the lstsq solve and an unfused render's parameter gradients; a phase
-simulator built for a rank carries the ``mesh`` it is a shard of).
-``scripts/torch_row_independence.py`` measures them all: on the H100 each
-row's log-density and gradient then equal one process's at 1, 2, 4 and 25
-rows a rank for the bench, survey and cluster (dpie) scenes; the lstsq
-model's gradient from 2 rows a rank. The pixelated-source model is not
-padded (to rounding). SVI's gradient all-reduce adds in another order (to
-rounding).
+threads by the number of rows a call holds (the prob models' pixel terms,
+the lstsq solve and its image, an unfused render's parameter gradients,
+and the pixelated-source model's ray-shooting, Gram, Cholesky and solves;
+a phase simulator built for a rank carries the ``mesh`` it is a shard
+of). ``scripts/torch_row_independence.py`` measures them all: on the H100
+each row's log-density and gradient then equal one process's at 1, 2, 4
+and 25 rows a rank for the bench, survey and cluster (dpie, sie lstsq)
+scenes, and at 1, 2, 4 and 25 rows a rank of 100 for the pixelated-source
+model. SVI's
+gradient all-reduce adds in another order (to rounding).
 
 :class:`Mesh` with ``group=None`` is the one-rank mesh: no process group,
 and every collective below returns its input. ``constrain_samples`` has no

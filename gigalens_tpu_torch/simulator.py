@@ -51,12 +51,55 @@ def _batched(p: Dict):
     return {k: v[..., None] for k, v in p.items()}
 
 
+class _PInv(torch.autograd.Function):
+    """The Moore-Penrose pseudo-inverse ``P`` of a batch of real matrices
+    ``A``, singular values at or below ``rtol`` times the largest dropped
+    (``torch.linalg.pinv``), differentiated as the JAX package
+    differentiates ``jnp.linalg.pinv``: by Golub and Pereyra's formula
+    (SIAM J. Numer. Anal. 10, 413, 1973), whose vector-Jacobian product
+    with cotangent ``G`` is ``-P^T G P^T + (I - A P) G^T P P^T + P^T P G^T
+    (I - P A)``. Autograd through the SVD would differentiate the singular
+    vectors, whose derivatives grow as 1 / (s_i^2 - s_j^2) where two
+    singular values meet, as the dropped ones of a Gram with vanished
+    components do; the pseudo-inverse's own derivative does not."""
+
+    @staticmethod
+    def forward(ctx, a, rtol):
+        p = torch.linalg.pinv(a, rtol=rtol)
+        ctx.save_for_backward(a, p)
+        return p
+
+    @staticmethod
+    def backward(ctx, g):
+        a, p = ctx.saved_tensors
+        pt, gt = p.mT, g.mT
+        grad = (-(pt @ g) @ pt
+                + (gt - a @ (p @ gt)) @ (p @ pt)
+                + (pt @ p) @ (gt - (gt @ p) @ a))
+        return grad, None
+
+
+def pinv(a, rtol):
+    """:class:`_PInv`: ``torch.linalg.pinv(a, rtol=rtol)`` with the JAX
+    package's derivative."""
+    return _PInv.apply(a, rtol)
+
+
 def _lstsq_coeffs(imgs, observed_image, err_map):
     """(n, depth) weighted least-squares amplitudes of the (depth, n, H, W)
     component images against the (H, W) data, or against (S, H, W) data
     with the n rows scene-major: the normal equations with a
     pseudo-inverse (relative cutoff 1e-6, as the JAX package's
-    ``pinv(rcond=1e-6)``)."""
+    ``pinv(rcond=1e-6)``, and its derivative: :func:`pinv`).
+
+    The Gram and the solve run in float64, a departure from the JAX
+    package's float32 (F-ref-7): the Gram squares the components' condition
+    number, and config #5's sie arm reaches Grams whose kept singular
+    values span 1e6, where a float32 solve's z-gradient is off the float64
+    one by orders of magnitude in either package, and SVI climbs
+    (``scripts/torch_lstsq_svi_study.py``; the JAX package's own float32
+    run: ``scripts/cluster_jax_starts.py --sie-svi``). Amplitudes return in
+    the images' dtype."""
     depth, n = imgs.shape[:2]
     ret = imgs.permute(1, 2, 3, 0)  # (n, H, W, depth)
     if observed_image.ndim == 3:  # scene-batched data
@@ -68,8 +111,10 @@ def _lstsq_coeffs(imgs, observed_image, err_map):
         W = (1.0 / err_map)[..., None]  # (H, W, 1)
         Y = (observed_image * W[..., 0]).reshape(1, -1, 1)
         X = (ret * W).reshape(n, -1, depth)
+    X, Y = X.double(), Y.double()
     Xt = X.transpose(-1, -2)
-    return (torch.linalg.pinv(Xt @ X, rtol=1e-6) @ (Xt @ Y))[..., 0].reshape(n, depth)
+    coeffs = (pinv(Xt @ X, 1e-6) @ (Xt @ Y))[..., 0].reshape(n, depth)
+    return coeffs.to(imgs.dtype)
 
 
 class LensSimulator(gmodel.VersionedAttrs):
@@ -320,6 +365,28 @@ class LensSimulator(gmodel.VersionedAttrs):
         (a bare list of per-profile dicts) passes through, as in JAX."""
         return params.get(key, [{} for _ in profiles]) if isinstance(params, dict) else params
 
+    def global_view(self, params):
+        """Under a mesh, ``(view, padded)``: this simulator at the global
+        row count with no mesh, and ``params`` (a parameter tree, or a bare
+        list of per-profile dicts) with this rank's rows among copies of its
+        first row for the other ranks' (:func:`~gigalens_tpu_torch.parallel.mesh.pad_rows`);
+        a row-wise computation on them, cut back to this rank's rows with
+        ``rank_rows``, rounds each row as one process does."""
+        mesh = self.mesh
+        view = copy.copy(self)
+        view.bs, view.mesh = self.bs * mesh.size, None
+
+        def pad(v):
+            if not isinstance(v, torch.Tensor) or v.dim() == 0 or v.shape[0] != self.bs:
+                return v
+            return pmesh.pad_rows(v, mesh)
+
+        def pad_group(ps):
+            return [{k: pad(v) for k, v in p.items()} for p in ps]
+
+        return view, ({g: pad_group(ps) for g, ps in params.items()}
+                      if isinstance(params, dict) else pad_group(params))
+
     def _flat_light(self, params, no_deflection=False, stack_components=False):
         """Total surface brightness on the live supersampled pixels.
 
@@ -379,20 +446,8 @@ class LensSimulator(gmodel.VersionedAttrs):
             # the unfused render's parameter gradients are autograd's sums
             # over the supersampled pixels, which the card splits among
             # blocks by the number of rows: render at the global row count
-            # (this rank's rows among copies of its first row) and keep them
-            view = copy.copy(self)
-            view.bs, view.mesh = self.bs * mesh.size, None
-
-            def pad(v):
-                if not isinstance(v, torch.Tensor) or v.dim() == 0 or v.shape[0] != self.bs:
-                    return v
-                return pmesh.pad_rows(v, mesh)
-
-            def pad_group(ps):
-                return [{k: pad(v) for k, v in p.items()} for p in ps]
-
-            padded = ({g: pad_group(ps) for g, ps in params.items()}
-                      if isinstance(params, dict) else pad_group(params))
+            # and keep this rank's rows
+            view, padded = self.global_view(params)
             out = view._flat_light(padded, no_deflection, stack_components)
             return pmesh.rank_rows(out, mesh, dim=out.dim() - 2)
 
@@ -506,20 +561,19 @@ class LensSimulator(gmodel.VersionedAttrs):
         S = observed_image.shape[0] if observed_image.ndim == 3 else 1
         if self.bs % S:
             raise ValueError(f"batch {self.bs} is not a multiple of {S} scenes")
-        mesh = self.mesh
-        if mesh is None or mesh.size == 1:
+        def solve(imgs):  # (depth, n, H, W) -> (n, depth) amplitudes, (n, H, W) image
             coeffs = _lstsq_coeffs(imgs, observed_image, err_map)
-        else:
-            # at the global row count, each scene's rows among filler rows for
-            # the other ranks': the batched GEMMs and the pseudo-inverse
-            # pick their algorithms by the number of rows
-            rows = imgs.reshape(imgs.shape[0], S, self.bs // S, *imgs.shape[2:])
-            full = pmesh.pad_rows(rows, mesh, dim=2).flatten(1, 2)
-            coeffs = _lstsq_coeffs(full, observed_image, err_map)
-            coeffs = pmesh.rank_rows(coeffs.reshape(S, -1, self.depth), mesh, dim=1)
-        coeffs = coeffs.reshape(self.bs, self.depth)
-        ret = imgs.permute(1, 2, 3, 0)  # (bs, H, W, depth)
+            return coeffs, torch.sum(imgs.permute(1, 2, 3, 0) * coeffs[:, None, None, :], dim=-1)
+
+        # at the global row count, each scene's rows among filler rows for the
+        # other ranks': the batched GEMMs and the pseudo-inverse pick their
+        # algorithms by the number of rows, and the image's gradient to the
+        # amplitudes is a sum over a row's pixels
+        mesh = self.mesh
+        rows = imgs.reshape(imgs.shape[0], S, self.bs // S, *imgs.shape[2:])
+        coeffs, out = solve(pmesh.pad_rows(rows, mesh, dim=2).flatten(1, 2))
+        coeffs = pmesh.rank_rows(coeffs.reshape(S, -1, self.depth), mesh, dim=1)
+        out = pmesh.rank_rows(out.reshape(S, -1, *out.shape[1:]), mesh, dim=1)
         if return_coeffs:
-            return coeffs
-        out = torch.sum(ret * coeffs[:, None, None, :], dim=-1)
-        return torch.squeeze(out)
+            return coeffs.reshape(self.bs, self.depth)
+        return torch.squeeze(out.reshape(self.bs, *out.shape[-2:]))

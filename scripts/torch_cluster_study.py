@@ -3,7 +3,7 @@
 
     python3 scripts/torch_cluster_study.py [--members dpie|sie] [--source sampled|lstsq]
         [--traj static] [--init-l 8] [--burnin 500] [--results 750] [--mass-windows 1]
-        [--seed 3] [--hmc 50] [--jax-truth] [--until-svi] [--out DIR]
+        [--seed 3] [--hmc 50] [--jax-truth] [--jax-starts] [--until-svi] [--out DIR]
 
 Runs ``gigalens_tpu_torch.bench.run_cluster`` (the ``--cluster`` pipeline)
 with these flags, then prints the JSON row and, per chain: its
@@ -12,8 +12,13 @@ previous draw), its divergences, its mean pixel red-chi2 and log-density
 over the last 100 draws, and its means of the three parameters of largest
 split-R-hat, against the other chains' median. With ``--out`` it saves
 the samples, the per-chain statistics and the truth (unconstrained) to
-``DIR/cluster_<members>_<source>[_jax_truth].npz``. Needs a CUDA device
-unless given ``--device cpu``.
+``DIR/cluster_<members>_<source>[_jax_truth][_jax_starts].npz``. With
+``--jax-truth`` the truth is the JAX script's own (``bench.CL_JAX_TRUTH``),
+and with ``--jax-starts`` (dpie, sampled source) the MAP starts from the
+JAX script's own 128 draws (``bench.CL_JAX_STARTS``, written by
+``scripts/cluster_jax_starts.py``) in place of the port's prior draws
+from a seeded ``torch.Generator``. Needs a CUDA device unless given
+``--device cpu``.
 """
 from __future__ import annotations
 
@@ -24,27 +29,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
-
-
-# the truth of scripts/bench_cluster_posterior.py's own rows: its prior's
-# draw at jax.random.PRNGKey(5) (:167), copied as float32 values (BASELINE.md's
-# theta_E* 0.352 sie, 0.358 dpie). The halo is the same draw in both arms;
-# the truth traces one image, so the script's fits take no positions.
-_HALO = dict(Rs=10.866031646728516, alpha_Rs=2.644106864929199, center_x=0.8548650741577148,
-             center_y=-0.6076276898384094, e1=0.09020333737134933, e2=-0.09072451293468475)
-_AMPS = [2.946794271469116, -2.8893816471099854, -2.1054301261901855, -7.293202877044678,
-         1.8643121719360352, 7.970737934112549, -4.233013153076172, 4.726140022277832,
-         3.0026659965515137, 6.797476768493652, 3.4189019203186035, -6.829867839813232,
-         5.9823713302612305, 1.372706413269043, 8.919219017028809, -7.258894920349121]
-JAX_TRUTH = dict(
-    sie=dict(lens_mass=[_HALO, dict(theta_E=0.3515036106109619)],
-             source_light=[dict({f"amp{i:02d}": a for i, a in enumerate(_AMPS[:15])},
-                                beta=0.2991989552974701, center_x=0.2494579255580902,
-                                center_y=-0.3853776752948761)]),
-    dpie=dict(lens_mass=[_HALO, dict(r_cut=1.667107343673706, theta_E=0.35802045464515686)],
-              source_light=[dict({f"amp{i:02d}": a for i, a in enumerate(_AMPS[1:])},
-                                 beta=0.47237342596054077, center_x=-0.3853776752948761,
-                                 center_y=-0.3011828660964966)]))
 
 
 def main(argv=None):
@@ -61,6 +45,8 @@ def main(argv=None):
     ap.add_argument("--jax-truth", action="store_true",
                     help="the script's own truth (JAX's key-5 draw) in place of the port's "
                          "torch-seeded one")
+    ap.add_argument("--jax-starts", action="store_true",
+                    help="the MAP from the JAX script's 128 starts (dpie, sampled source)")
     ap.add_argument("--until-svi", action="store_true",
                     help="stop after SVI: print the Laplace factor's diagonal, the SVI losses "
                          "and the share of finite log-densities of the surrogate's draws")
@@ -77,14 +63,17 @@ def main(argv=None):
     if args.device == "cuda" and not torch.cuda.is_available():
         print("torch_cluster_study: needs a CUDA device", file=sys.stderr)
         return 1
-    truth = JAX_TRUTH[args.members] if args.jax_truth else None
+    truth = bench.CL_JAX_TRUTH[args.members] if args.jax_truth else None
+    if args.jax_starts and (args.members, args.source) != ("dpie", "sampled"):
+        ap.error("--jax-starts draws the dpie arm's starts (sampled source)")
+    start = bench.cluster_jax_starts(args.device) if args.jax_starts else None
     if args.until_svi:
-        return until_svi(args, truth)
+        return until_svi(args, truth, start)
     run = bench.run_cluster(args.members, hmc=args.hmc, burnin=args.burnin,
                             results=args.results, seed=args.seed, traj=args.traj,
                             init_l=args.init_l, mass_windows=args.mass_windows,
-                            source=args.source, device=args.device,
-                            truth=truth)
+                            source=args.source, device=args.device, truth=truth,
+                            map_start=start)
     print(json.dumps(run.row), flush=True)
     sc, samples = run.scene, run.samples  # (results, chains, d)
     prior, prob = sc.prior, sc.prob
@@ -124,7 +113,7 @@ def main(argv=None):
         return 0
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    tag = "_jax_truth" if args.jax_truth else ""
+    tag = ("_jax_truth" if args.jax_truth else "") + ("_jax_starts" if args.jax_starts else "")
     np.savez(out / f"cluster_{args.members}_{args.source}{tag}.npz", samples=samples.cpu().numpy(),
              rhat=rhat, moved=moved.cpu().numpy(), divergences=div.cpu().numpy(),
              chi2=chi2.cpu().numpy(), log_prob=lp.cpu().numpy(), names=np.array(names),
@@ -132,30 +121,26 @@ def main(argv=None):
     return 0
 
 
-def until_svi(args, truth):
+def until_svi(args, truth, start):
     """MAP, the FD Laplace and SVI of the ``--cluster`` pipeline, with what
     SVI starts from and what it does printed."""
     import numpy as np
     import torch
 
     from gigalens_tpu_torch import bench
-    from gigalens_tpu_torch.inference.sequence import svi_optimizer
 
     sc = bench.cluster_scene(args.members, seed=args.seed, source=args.source,
                              device=args.device, truth=truth)
     run = bench.ClusterRun(sc, device=args.device)
-    run.phase_map()
+    run.phase_map(start=start)
+    run.phase_svi()
     lps = torch.where(torch.isnan(run.lps), -torch.inf, run.lps)
-    best = run.z_map[torch.argmax(lps)][None, :]
-    L0 = run.seq.laplace_scale_tril(best)
     print(f"best start log_prob {float(lps.max()):.3f}, {int(torch.isnan(run.lps).sum())} NaN "
-          f"of {lps.shape[0]}; Laplace factor finite {bool(np.isfinite(L0).all())}, diagonal "
-          f"{np.round(np.diag(L0), 5).tolist()}", flush=True)
-    steps = bench.CL_DEPTHS["vi_steps"]
-    q, losses = run.seq.SVI(best, svi_optimizer(steps), n_vi=bench.CL_DEPTHS["vi_n"],
-                            num_steps=steps, init_scales=L0, seed=1)
-    print("SVI losses every 40 steps: " + ", ".join(f"{float(v):.2f}" for v in losses[::40]),
+          f"of {lps.shape[0]}; Laplace factor finite {bool(np.isfinite(run.L0).all())}, "
+          f"diagonal {np.round(np.diag(run.L0), 5).tolist()}", flush=True)
+    print("SVI losses every 40 steps: " + ", ".join(f"{float(v):.2f}" for v in run.losses[::40]),
           flush=True)
+    q = run.q_z
     z = q.sample(torch.Generator(device=run.device).manual_seed(0), 256)
     with torch.no_grad():
         lp = sc.prob.log_prob(run._sim(256), z)[0]

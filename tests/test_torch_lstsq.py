@@ -4,9 +4,10 @@ package (CPU).
 A 20x20 scene at supersample 2 with a 5x5 Gaussian PSF, BS 4, inputs from
 numpy seeds. Tolerances: renders rtol 1e-4 of the max (float32 on both
 sides, as tests/test_torch_map.py); the lstsq fit 5e-4 of the max and the
-log-likelihood rtol 1e-4 (the float32 normal equations and pseudo-inverse
-amplify rounding, the bound of tests/test_fused_builder.py's lstsq check);
-its z-gradient 1e-3 of the max, through the pseudo-inverse on both sides.
+log-likelihood rtol 1e-4 (JAX's float32 normal equations and
+pseudo-inverse amplify rounding, the bound of tests/test_fused_builder.py's
+lstsq check; the port solves them in float64, F-ref-7); its z-gradient
+1e-3 of the max, through the pseudo-inverse on both sides.
 """
 import dataclasses
 

@@ -164,7 +164,8 @@ def row_checks():
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
-@pytest.mark.parametrize("model", ["forward", "backward", "survey_forward", "survey_backward"])
+@pytest.mark.parametrize("model", ["forward", "backward", "survey_forward", "survey_backward",
+                                   "inversion"])
 def test_rows_at_any_count_equal_a_48_row_call(row_checks, model):
     """Each prob model's per-row log_prob and z-gradient at k = 1, 2, 4, 12
     and 24 rows (a scene, for the two-scene survey models) on a simulator
@@ -172,7 +173,9 @@ def test_rows_at_any_count_equal_a_48_row_call(row_checks, model):
     equal to the same rows in one 48-row call: the pixel sums and the lstsq
     solve run at the global row count, so N ranks hold one process's
     numbers at any rows a rank (pixels and four image positions for the
-    ForwardProbModel; both lights linear for the BackwardProbModel)."""
+    ForwardProbModel; both lights linear for the BackwardProbModel, 1 row
+    a rank included; the pixelated-source model's ray-shooting, lens light,
+    Gram, Cholesky, solves and pixel sums)."""
     got = row_checks[model]
     want = [1, 2, 4, 12] + ([24] if not model.startswith("survey") else [])
     assert sorted(int(k) for k in got) == want

@@ -255,7 +255,10 @@ def row_models():
     positions (ForwardProbModel), the same with both lights linear
     (BackwardProbModel), and the survey catalogue of two scenes with a
     sampled source (SurveyForwardProbModel) and a linear one
-    (SurveyBackwardProbModel); observations drawn with numpy seeded 7."""
+    (SurveyBackwardProbModel), and the pixelated-source model of
+    :func:`inversion_scene` with a parametric lens light and a sampled
+    lam (PixelatedSourceProbModel); observations drawn with numpy seeded
+    7."""
     from gigalens_tpu_torch.model import BackwardProbModel, SurveyBackwardProbModel
 
     rng = np.random.default_rng(7)
@@ -286,9 +289,19 @@ def row_models():
         source_light=[{k: v for k, v in sp.tree["source_light"][0].items() if k != "Ie"}]))
     s_bwd = SurveyBackwardProbModel(s_lin_prior, s_obs, background_rms=BKG, exp_time=EXP_TIME,
                                     device="cpu")
+    from gigalens_tpu_torch.inversion import PixelatedSourceProbModel, SourceGrid
+
+    i_phys, i_cfg, i_model = inversion_scene(obs, gaussian_psf())
+    inv_prior = Prior(dict(lens_mass=i_model.prior.tree["lens_mass"],
+                           lens_light=prior.tree["lens_light"],
+                           source_pixelated=[dict(lam=dist.LogNormal(math.log(2.0), 0.3))]))
+    inv = PixelatedSourceProbModel(inv_prior, obs, background_rms=0.3, exp_time=100.0,
+                                   grid=SourceGrid(n_side=8, extent=0.5), device="cpu")
+    inv_phys = PhysicalModel(i_phys.lenses, [SersicEllipse()], [])
     return [("forward", fwd, phys, cfg, 1), ("backward", bwd, lin, cfg, 1),
             ("survey_forward", s_fwd, s_phys, s_cfg, ROW_SCENES),
-            ("survey_backward", s_bwd, s_lin, s_cfg, ROW_SCENES)]
+            ("survey_backward", s_bwd, s_lin, s_cfg, ROW_SCENES),
+            ("inversion", inv, inv_phys, i_cfg, 1)]
 
 
 def row_checks():
