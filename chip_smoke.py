@@ -8,6 +8,7 @@
     python3 chip_smoke.py --inversion # steps 1, 2 and 12 only, the same kind of aid
     python3 chip_smoke.py --mesh      # steps 1, 2 and 13 only, the same kind of aid
     python3 chip_smoke.py --cluster   # steps 1, 2, 10, 10b and 10c only, the same kind of aid
+    python3 chip_smoke.py --demos     # steps 1, 2 and 15 only, the same kind of aid
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the hand-written kernels from gigalens_tpu_torch/csrc/ with nvcc
@@ -167,19 +168,42 @@
    phase inside MESH_TIMEOUT.
 14. Ends with the card line, a JSON line of per-kernel results and the ok
    line.
+15. Runs the JAX package's shipped workflows (gigalens_tpu_torch.demos) at
+   the demos' widths, each leg with the launch counters zeroed just before
+   it and read just after, each raising unless every gate of its result
+   holds: (c) examples/demo_model_comparison.py, SMC from the prior, 256
+   particles x 2 ensembles, for EPL and SIE (K2/K3, no K4; beta = 1 on
+   every ensemble, finite logZ, log Bayes factor above max(5, the ensemble
+   spread)); (a) examples/demo_composite.py, Hernquist + NFW_ELLIPSE + m=4
+   multipole + Shear rendered unfused, MAP 256 x 250, FD Laplace, SVI 200 x
+   300, ChEES HMC 16 x (150 + 400) (the direct K4 exactly once a MAP and
+   an SVI step each way, nothing in HMC; acceptance, the posterior
+   red-chi2, best-MAP red-chi2 and the three recoveries, split-R-hat
+   printed);
+   (d) docs/multiplane.md's model in tests/test_multiplane.py's
+   configuration, MAP 128 x 300 (the direct K4 exactly once a step each
+   way) and the images' composed-Jacobian magnifications against central
+   differences; (b) examples/demo_timedelay.py, positions + delays +
+   fluxes with a sampled D_dt through ModellingSequence.fit, HMC at the
+   demo's --quick depth 16 x (300 + 300) (no launches;
+   4 images, D_dt within 2 posterior std of its truth, its split-R-hat);
+   then K2/K3 at the comparison's (512, 1,024 px) for each arm and the
+   direct K4 both ways at the composite MAP's and SVI's and the multi-plane
+   MAP's shapes against their twins. Its rows join step 14's line.
 
-Step 11 runs in a second process (spawned) beside steps 6-8 and steps 10,
-10b's sampling and 10c, which are host-bound like it. Every measurement made
-for the record (the stage profiles of steps 7, 10 and 11, step 9, steps
-10's, 10b's and 11's kernels rows, the hot loop) waits until the card is
-one process's: step 11's until the main process has sampled step 10b, the
-main process's until step 11's process has ended. The walls of the
-sampling phases of steps 6-8, 10, 10b, 10c and 11 are taken beside the other
-process.
+Steps 11 and 15 run in processes of their own (spawned) beside steps 6-8
+and steps 10, 10b's sampling and 10c, which are host-bound like them. Every
+measurement made for the record (the stage profiles of steps 7, 10 and 11,
+step 9, steps 10's, 10b's, 11's and 15's kernels rows, the hot loop) waits
+until the card is one process's: step 11's until the main process has
+sampled step 10b and step 15's process has ended, the main process's until
+both have ended. The walls of the sampling phases of steps 6-8, 10, 10b,
+10c, 11 and 15 are taken beside the other processes.
 
-Every phase raises on failure (nothing is caught; step 11's process is
-stopped when the main process fails, and its failure raises in the main
-process), so any failure exits nonzero before the ok line. Without a CUDA device it exits nonzero at once.
+Every phase raises on failure (nothing is caught; the processes of steps 11
+and 15 are stopped when the main process fails, and their failures raise in
+the main process), so any failure exits nonzero before the ok line. Without
+a CUDA device it exits nonzero at once.
 """
 from __future__ import annotations
 
@@ -2434,30 +2458,35 @@ def survey_worker(quiet, out_path):
     torch.save(dict(kernels=kernels, counts=counts), out_path)
 
 
-class SurveyProcess:
-    """survey_worker in a process of its own (start method spawn), started
-    on entering; ``check()`` raises once it has failed, ``finish()`` lets it
-    measure, joins it within what is left of SURVEY_TIMEOUT and returns its
-    (kernels rows, launch counts). Leaving the block stops it if it still
-    runs, so a failure on either side ends both."""
+class SideProcess:
+    """``target(quiet, out_path)`` in a process of its own (start method
+    spawn), started on entering; ``check()`` raises once it has failed,
+    ``finish()`` lets it measure (sets ``quiet``), joins it within what is
+    left of ``timeout`` and returns what it saved to ``out_path``. Leaving
+    the block stops it if it still runs, so a failure on either side ends
+    both."""
+
+    def __init__(self, target, label, timeout):
+        self.target, self.label, self.timeout = target, label, timeout
 
     def __enter__(self):
         import multiprocessing
         import tempfile
 
         ctx = multiprocessing.get_context("spawn")
-        self.dir = tempfile.TemporaryDirectory(prefix="survey_")
-        self.out = str(Path(self.dir.name) / "survey.pt")
+        self.dir = tempfile.TemporaryDirectory(prefix=f"{self.label}_")
+        self.out = str(Path(self.dir.name) / "out.pt")
         self.quiet = ctx.Event()
-        self.proc = ctx.Process(target=survey_worker, args=(self.quiet, self.out))
+        self.proc = ctx.Process(target=self.target, args=(self.quiet, self.out))
         self.t0 = time.perf_counter()
         self.proc.start()
-        print("survey phase: started in a second process", flush=True)
+        print(f"{self.label} phase: started in a process of its own", flush=True)
         return self
 
     def check(self):
         if self.proc.exitcode not in (None, 0):
-            raise AssertionError(f"the survey process failed (exit code {self.proc.exitcode})")
+            raise AssertionError(f"the {self.label} process failed (exit code "
+                                 f"{self.proc.exitcode})")
 
     def finish(self):
         import torch
@@ -2465,15 +2494,14 @@ class SurveyProcess:
         self.check()
         t_wait = time.perf_counter()
         self.quiet.set()
-        self.proc.join(max(SURVEY_TIMEOUT - (time.perf_counter() - self.t0), 0.0))
+        self.proc.join(max(self.timeout - (time.perf_counter() - self.t0), 0.0))
         if self.proc.exitcode is None:
-            raise AssertionError(f"the survey process not done in {SURVEY_TIMEOUT} s")
+            raise AssertionError(f"the {self.label} process not done in {self.timeout} s")
         self.check()
-        print(f"survey phase: joined {time.perf_counter() - self.t0:.1f} s after its start, "
-              f"{time.perf_counter() - t_wait:.1f} s after the main process's sampling",
+        print(f"{self.label} phase: joined {time.perf_counter() - self.t0:.1f} s after its "
+              f"start, {time.perf_counter() - t_wait:.1f} s after the main process's sampling",
               flush=True)
-        out = torch.load(self.out, weights_only=False)  # this script's own file
-        return out["kernels"], out["counts"]
+        return torch.load(self.out, weights_only=False)  # this script's own file
 
     def __exit__(self, *exc):
         if self.proc.is_alive():
@@ -3119,6 +3147,187 @@ def mesh_phase(card):
           "in-process run, at the stated tolerances", flush=True)
 
 
+# step 15: the JAX package's shipped workflows (gigalens_tpu_torch.demos) at
+# the demos' widths: (c) model comparison, (a) composite, (d) multi-plane,
+# (b) time delay. HMC depths of (a) and (b), (chains, burn-in, results): the
+# composite demo's; the time-delay demo's --quick ones (its 32 x (500 + 750)
+# took 282 s of HMC alone on the card, step 15 428.5 s, which beside the
+# other two processes would end past the main process's sampling)
+DEMO_COMPOSITE_HMC = (16, 150, 400)
+DEMO_TIMEDELAY_HMC = (16, 300, 300)
+DEMO_TIMEOUT = 700.0  # the demos process's limit
+FUSED_RENDER_KEYS = ("fused_render_fwd", "fused_render_fwd_omega", "fused_render_bwd")
+K4_KEYS = ("direct_conv_fwd", "direct_conv_transpose", "dft_conv_fwd", "dft_conv_transpose")
+
+
+def demos_phase():
+    """Step 15's four legs, each with the launch counters zeroed just
+    before it and read just after, each raising unless every gate of its
+    ``gigalens_tpu_torch.demos`` result holds: (c) the SMC evidence of EPL
+    against SIE (K2/K3 in both arms, no K4); (a) the composite demo (the
+    direct K4 exactly once a MAP and an SVI step each way, no fused render;
+    no kernel in HMC); (d) the multi-plane MAP (the direct K4 exactly once
+    a step each way, no fused render) and its magnifications against
+    central differences; (b) the time-delay fit (no launches at all).
+    Returns (launch counts by phase, the states step 15's kernels rows
+    start from, as CPU tensors)."""
+    import os
+
+    import torch
+
+    from gigalens_tpu_torch import demos
+    from gigalens_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    counts, walls, states = {}, {}, {}
+    print(f"step 15: the shipped workflows; os.cpu_count() {os.cpu_count()}", flush=True)
+
+    def counted(prefix):
+        @contextlib.contextmanager
+        def hook(name):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            yield
+            torch.cuda.synchronize()
+            counts[f"{prefix}_{name}"] = launch_counts()
+            print(f"step 15 {prefix} {name}: {time.perf_counter() - t0:.2f} s, launches "
+                  f"{json.dumps(counts[f'{prefix}_{name}'])}", flush=True)
+        return hook
+
+    def gated(leg, res):
+        print(f"step 15 {leg} JSON: {json.dumps(dict(gates=res.gates(), **res.row()))}",
+              flush=True)
+        failed = [k for k, ok in res.gates().items() if not ok]
+        if failed:
+            raise AssertionError(f"step 15 {leg}: gates failed {failed}")
+
+    t0 = time.perf_counter()
+    res = demos.run_comparison(device=dev, hook=counted("demo_comparison"))
+    walls["(c) comparison"] = time.perf_counter() - t0
+    gated("(c) comparison", res)
+    for name in ("EPL", "SIE"):
+        seq, smc = res.states[name]
+        sim = seq._sim(smc.particles.shape[0] * smc.particles.shape[1], exact=True)
+        if not (sim._use_fused and sim._fused_niter is not None):
+            raise AssertionError(f"step 15 (c): the {name} arm must take K1-K3")
+        check_launches(f"step 15 (c) {name} SMC", counts[f"demo_comparison_{name}"],
+                       HMC_NEED, K4_KEYS + BUILDER_BANNED)
+        states[f"comparison_{name}"] = smc.particles.reshape(-1, smc.particles.shape[-1]).cpu()
+
+    t0 = time.perf_counter()
+    hmc_n, burnin, results = DEMO_COMPOSITE_HMC
+    res = demos.run_composite(device=dev, hook=counted("demo_composite"), hmc_n=hmc_n,
+                              burnin=burnin, results=results)
+    walls["(a) composite"] = time.perf_counter() - t0
+    gated("(a) composite", res)
+    seq = res.states["seq"]
+    depths = demos.COMPOSITE_DEPTHS
+    sim = seq._sim(depths["map_n"])
+    if sim._use_fused or not direct_route(sim):
+        raise AssertionError("step 15 (a): the composite MAP must render unfused through the "
+                             "direct K4")
+    for phase, n in (("map", depths["map_steps"]), ("svi", depths["vi_steps"])):
+        check_launches(f"step 15 (a) composite {phase}", counts[f"demo_composite_{phase}"],
+                       banned=FUSED_RENDER_KEYS + BUILDER_BANNED + ("dft_conv_fwd",
+                                                                    "dft_conv_transpose"),
+                       exact=dict(direct_conv_fwd=n, direct_conv_transpose=n))
+    check_launches("step 15 (a) composite HMC", counts["demo_composite_hmc"],
+                   banned=FUSED_RENDER_KEYS + BUILDER_BANNED + K4_KEYS)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    states["composite_map"] = res.states["z_map"].cpu()
+    states["composite_svi"] = res.states["q_z"].sample(gen, depths["vi_n"]).cpu()
+
+    t0 = time.perf_counter()
+    res = demos.run_multiplane(device=dev, hook=counted("demo_multiplane"))
+    walls["(d) multi-plane"] = time.perf_counter() - t0
+    gated("(d) multi-plane", res)
+    n = demos.MULTIPLANE_MAP["map_steps"]
+    check_launches("step 15 (d) multi-plane MAP", counts["demo_multiplane_map"],
+                   banned=FUSED_RENDER_KEYS + BUILDER_BANNED + ("dft_conv_fwd",
+                                                                "dft_conv_transpose"),
+                   exact=dict(direct_conv_fwd=n, direct_conv_transpose=n))
+    states["multiplane_map"] = res.states["z_map"].cpu()
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    hmc_n, burnin, results = DEMO_TIMEDELAY_HMC
+    res = demos.run_timedelay(device=dev, n_hmc=hmc_n, burnin=burnin, results=results)
+    torch.cuda.synchronize()
+    walls["(b) time delay"] = time.perf_counter() - t0
+    counts["demo_timedelay"] = launch_counts()
+    gated("(b) time delay", res)
+    check_launches("step 15 (b) time delay", counts["demo_timedelay"],
+                   banned=FUSED_RENDER_KEYS + BUILDER_BANNED + K4_KEYS)
+    print(f"step 15: {time.perf_counter() - t_phase:.1f} s; walls (s) "
+          + ", ".join(f"{k} {v:.2f}" for k, v in walls.items()), flush=True)
+    return counts, states
+
+
+def demos_worker(quiet, out_path):
+    """demos_phase() in a spawned process: loads the kernels step 2 built
+    and saves its (launch counts, states) to ``out_path``; it measures
+    nothing, so ``quiet`` goes unused."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    from gigalens_tpu_torch.ops.cuda import _build
+
+    _build.load()
+    counts, states = demos_phase()
+    torch.save(dict(counts=counts, states=states), out_path)
+
+
+def demos_kernels(states):
+    """Step 15's kernels at its new shapes, against their twins, with the
+    card to this process: K2/K3 at the comparison's final clouds (512 rows
+    of 1,024 pixels, niter 23) for each arm, the SIE as EPL at gamma = 2
+    with a zero lens light; the direct K4 both ways at the composite MAP's
+    (256, 128, 128) and SVI's (200, 128, 128) images (the 13-px PSF, pooled)
+    and at the multi-plane MAP's (128, 48, 48). Returns the kernels rows."""
+    import torch
+
+    from gigalens_tpu_torch import demos
+    from gigalens_tpu_torch.simulator import LensSimulator
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    kernels = []
+    sc = demos.comparison_scene(dev)
+    for name, (phys, prior) in sc.arms.items():
+        z = states[f"comparison_{name}"].to(dev)
+        sim = LensSimulator(phys, sc.cfg, bs=z.shape[0], device=dev)
+        params = sim.fused_params(prior.constrain(z)).contiguous()
+        rows, _ = render_rows(params, sim, gen, f"demo_comparison_{name}",
+                              f"comparison {name} SMC bs={z.shape[0]}")
+        kernels += rows
+
+    def k4_rows(sc, z, phase, where):
+        sim = LensSimulator(sc.phys, sc.cfg, bs=z.shape[0], device=dev)
+        if not direct_route(sim):
+            raise AssertionError(f"step 15 {where}: the simulator must take the direct K4")
+        conv = sim._conv
+        with torch.no_grad():
+            flat = sim._flat_light(sc.prior.constrain(z))
+        xin = flat.reshape(-1, conv.h, conv.w).contiguous()
+        ctc = torch.randn((xin.shape[0], conv.h // conv.pool, conv.w // conv.pool),
+                          generator=gen, device=dev)
+        rows, _ = direct_checks(conv, xin, ctc, where)
+        return [dict(r, phase=phase) for r in rows]
+
+    sc = demos.composite_scene(device=dev)
+    for phase in ("map", "svi"):
+        z = states[f"composite_{phase}"].to(dev)
+        kernels += k4_rows(sc, z, f"demo_composite_{phase}",
+                           f"composite {phase.upper()} bs={z.shape[0]}")
+    z = states["multiplane_map"].to(dev)
+    kernels += k4_rows(demos.multiplane_scene(dev), z, "demo_multiplane_map",
+                       f"multi-plane MAP bs={z.shape[0]}")
+    return kernels
+
+
 def render_rows(params, sim, gen, phase, where):
     """K2 and K3 at ``params``' shape on ``sim``'s grid, each against its
     float64 twin with kernel_checks' tolerances and timed against its
@@ -3236,6 +3445,15 @@ def main(argv=()):
              if k not in ("key", "phase")} for kern in timed() + post_kernels()]}))
         return 0
 
+    if "--demos" in argv:
+        # a development aid: step 15 alone; no ok line follows
+        demo_counts, demo_states = demos_phase()
+        print(card)
+        print(json.dumps({"partial": True, "kernels": [
+            {k: v for k, v in dict(kern, launches=demo_counts[kern["phase"]][kern["key"]]).items()
+             if k not in ("key", "phase")} for kern in demos_kernels(demo_states)]}))
+        return 0
+
     if "--inversion" in argv:
         # a development aid: the inversion phase alone; no ok line follows
         kernels, counts = inversion_phase()
@@ -3259,18 +3477,26 @@ def main(argv=()):
               "S": family_path("S", MAP_STEPS), "L": family_path("L", MAP_STEPS)}
     # steps 6-8 and 10's sampling beside step 11 in a second process; then
     # each side's measurements with the card to itself
-    with SurveyProcess() as survey:
+    with SideProcess(survey_worker, "survey", SURVEY_TIMEOUT) as survey, \
+            SideProcess(demos_worker, "demos", DEMO_TIMEOUT) as demos_side:
+        def check_sides():
+            survey.check()
+            demos_side.check()
+
         pipe, rec = pipeline_phase()
-        survey.check()
+        check_sides()
         smc_res, smc_profile = smc_phase(pipe, rec)
         positions_phase(pipe)
-        survey.check()
+        check_sides()
         cluster_counts, cluster_timed, cluster_state = cluster_phase()
-        survey.check()
+        check_sides()
         posterior_counts, posterior_kernels = cluster_posterior_phase(*cluster_state)
-        survey.check()
+        check_sides()
         cluster_repairs_phase()
-        survey_kernels, survey_counts = survey.finish()
+        # the demos process measures nothing: joined first, the survey's
+        # measurements then have the card to themselves
+        demos_out = demos_side.finish()
+        survey_out = survey.finish()
     smc_profile()
     kernels += pipeline_kernel_checks(pipe, smc_res)
     counts.update(svi=rec["svi"]["counts"], hmc=rec["hmc"]["counts"], smc=rec["smc"]["counts"])
@@ -3278,8 +3504,10 @@ def main(argv=()):
     counts.update(cluster_counts)
     kernels += posterior_kernels()
     counts.update(posterior_counts)
-    kernels += survey_kernels
-    counts.update(survey_counts)
+    kernels += survey_out["kernels"]
+    counts.update(survey_out["counts"])
+    kernels += demos_kernels(demos_out["states"])
+    counts.update(demos_out["counts"])
     inversion_kernels, inversion_counts = inversion_phase()
     kernels += inversion_kernels
     counts.update(inversion_counts)
@@ -3291,6 +3519,8 @@ def main(argv=()):
     # step 10b's the dpie SVI's and HMC's and the sie MAP's;
     # the survey rows the survey MAP's (the direct K4: all S scenes' launches);
     # the inversion K4 rows one bs-32 forward + gradient evaluation's;
+    # step 15's K2/K3 each comparison arm's SMC, its K4 rows the composite
+    # MAP's and SVI's and the multi-plane MAP's;
     # the chain K4 at the wide PSF the chain MAP phase's, and at the bench
     # shape, where PSFConv takes the direct route, 0)
     out = [

@@ -346,10 +346,10 @@ class ForwardProbModel(VersionedAttrs, _SamplerFacade):
         log_like = 0.0
         for cx, cy, cex, cey in zip(self.centroids_x, self.centroids_y,
                                     self.centroids_errors_x, self.centroids_errors_y):
-            beta_x, beta_y = simulator.beta(cx, cy, lens_params)  # (bs, n_img)
+            beta_x, beta_y = self._beta(simulator, cx, cy, lens_params)  # (bs, n_img)
             beta = torch.stack([beta_x, beta_y], dim=-2)  # (bs, 2, n_img)
             barycentre = torch.mean(beta, dim=-1, keepdim=True)
-            det_abs = _clamped_det(simulator, cx, cy, lens_params)
+            det_abs = self._det(simulator, cx, cy, lens_params)
             err = torch.stack([cex * det_abs, cey * det_abs], dim=-2)  # (bs, 2, n_img)
             chi2_i = torch.sum(((beta - barycentre) / err) ** 2, dim=(-2, -1))
             norm_i = torch.sum(torch.log(2 * math.pi * err**2), dim=(-2, -1))
@@ -364,7 +364,7 @@ class ForwardProbModel(VersionedAttrs, _SamplerFacade):
         sample from ``params["cosmo"][0]["D_dt"]``."""
         cx, cy = self.centroids_x[0], self.centroids_y[0]
         lens_params = params["lens_mass"]
-        beta_x, beta_y = simulator.beta(cx, cy, lens_params)  # (bs, n)
+        beta_x, beta_y = self._beta(simulator, cx, cy, lens_params)  # (bs, n)
         bxm = torch.mean(beta_x, dim=-1, keepdim=True)
         bym = torch.mean(beta_y, dim=-1, keepdim=True)
         tau = simulator.fermat_potential(cx, cy, lens_params, bxm, bym)
@@ -383,7 +383,7 @@ class ForwardProbModel(VersionedAttrs, _SamplerFacade):
         flux ``A |mu(theta_i)|`` with the unlensed flux ``A`` solved per
         sample by weighted least squares, |mu| from the clamped |det A|."""
         cx, cy = self.centroids_x[0], self.centroids_y[0]
-        mu = 1.0 / _clamped_det(simulator, cx, cy, params["lens_mass"])  # (bs, n)
+        mu = 1.0 / self._det(simulator, cx, cy, params["lens_mass"])  # (bs, n)
         w = 1.0 / self.image_flux_errors**2
         amp = torch.sum(w * self.image_fluxes * mu, dim=-1) / torch.clamp(
             torch.sum(w * mu * mu, dim=-1), min=1e-20)
@@ -398,15 +398,46 @@ class ForwardProbModel(VersionedAttrs, _SamplerFacade):
                                 (self.include_delays, self.stats_time_delays),
                                 (self.include_fluxes, self.stats_fluxes)) if on]
 
+    # one evaluation's shared fields (see _term_stats); None between them
+    _memo = None
+
+    def _term_stats(self, simulator, x):
+        """Each included term's (log_like, reduced_chi2) at the constrained
+        tree ``x``. The position, delay and flux terms need the same ray
+        trace and |det A| at the observed images: inside this call each is
+        computed once (:meth:`_shared`)."""
+        object.__setattr__(self, "_memo", dict(lens=x.get("lens_mass")))
+        try:
+            return [stats(simulator, x) for stats in self._terms()]
+        finally:
+            object.__setattr__(self, "_memo", None)
+
+    def _shared(self, key, lens_params, compute):
+        """``compute()``, once a :meth:`_term_stats` call for these
+        ``lens_params``; outside one, every call computes."""
+        memo = self._memo
+        if memo is None or memo["lens"] is not lens_params:
+            return compute()
+        if key not in memo:
+            memo[key] = compute()
+        return memo[key]
+
+    def _beta(self, simulator, cx, cy, lens_params):
+        return self._shared(("beta", id(cx)), lens_params,
+                            lambda: simulator.beta(cx, cy, lens_params))
+
+    def _det(self, simulator, cx, cy, lens_params):
+        return self._shared(("det", id(cx)), lens_params,
+                            lambda: _clamped_det(simulator, cx, cy, lens_params))
+
     def log_prob(self, simulator, z):
         """Unconstrained log posterior and reduced chi2 (the mean over the
         included terms); z shaped (bs, d)."""
         x = self.prior.constrain(z)
         log_like = torch.zeros(z.shape[:-1], dtype=z.dtype, device=z.device)
         red_chi2 = torch.zeros(z.shape[:-1], dtype=z.dtype, device=z.device)
-        terms = self._terms()
-        for stats in terms:
-            ll, rc = stats(simulator, x)
+        terms = self._term_stats(simulator, x)
+        for ll, rc in terms:
             log_like, red_chi2 = log_like + ll, red_chi2 + rc
         red_chi2 = red_chi2 / max(len(terms), 1)
         log_prior = self.prior.log_prob(x) + self.prior.fldj(z)
@@ -415,8 +446,8 @@ class ForwardProbModel(VersionedAttrs, _SamplerFacade):
     def log_like(self, simulator, z):
         x = self.prior.constrain(z)
         total = torch.zeros(z.shape[:-1], dtype=z.dtype, device=z.device)
-        for stats in self._terms():
-            total = total + stats(simulator, x)[0]
+        for ll, _ in self._term_stats(simulator, x):
+            total = total + ll
         return total
 
 

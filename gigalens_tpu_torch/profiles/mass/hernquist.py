@@ -32,11 +32,21 @@ def _horner(t, coeffs):
 
 
 def _hern_f(x):
-    """F(x): the arctanh/arctan special function; F(1) = 1."""
+    """F(x): the arctanh/arctan special function; F(1) = 1.
+
+    Below x = 1/2, arctanh(s) with s = sqrt(1 - x^2) is computed as
+    log1p((1 + s - x) / x), the same function: arctanh(s), as the JAX
+    package computes it, loses digits as s -> 1 and is inf once 1 - x^2
+    rounds to 1 in float32 (x below ~2.4e-4, a pixel within ~1e-4 arcsec
+    of the centre), with a NaN gradient (ROADMAP F-ref-8)."""
     x = torch.clamp(x, min=_X_MIN)
     x_lo = torch.where(x < 1, x, torch.full_like(x, 0.5))
     x_hi = torch.where(x > 1, x, torch.full_like(x, 2.0))
-    lo = torch.arctanh(torch.sqrt(1.0 - x_lo**2)) / torch.sqrt(1.0 - x_lo**2)
+    s_lo = torch.sqrt(1.0 - x_lo**2)
+    small = x_lo < 0.5
+    atanh = torch.where(small, torch.log1p((1.0 + s_lo - x_lo) / x_lo),
+                        torch.arctanh(torch.where(small, torch.full_like(s_lo, 0.5), s_lo)))
+    lo = atanh / s_lo
     hi = torch.arctan(torch.sqrt(x_hi**2 - 1.0)) / torch.sqrt(x_hi**2 - 1.0)
     return torch.where(x < 1, lo, hi)
 

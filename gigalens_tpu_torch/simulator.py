@@ -266,6 +266,27 @@ class LensSimulator(gmodel.VersionedAttrs):
             return EPL.recommended_niter(q_min=0.43, tol=1e-8)
         return pm.lenses[0].niter
 
+    def fused_params(self, params):
+        """The (bs, 22) parameter matrix that K1-K3 take for ``params`` of
+        the [EPL|SIE, Shear] + [SersicEllipse]? + [SersicEllipse] pattern,
+        with its two degenerate forms filled in."""
+        fp = params
+        if "gamma" not in params["lens_mass"][0]:
+            # SIE deflector: EPL at the constant gamma = 2 (an exact
+            # special case; the constant column carries no gradient)
+            lm0 = dict(params["lens_mass"][0])
+            lm0["gamma"] = torch.full_like(lm0["theta_E"].reshape(-1), 2.0)
+            fp = {**params, "lens_mass": [lm0, params["lens_mass"][1]]}
+        if not self.phys_model.lens_light:
+            # zero-amplitude lens light: Ie = 0 kills the component
+            # exactly; the other dummies sit at benign values so the
+            # kernel's intermediate math stays finite (R=1, n=4, e=0)
+            z = torch.zeros_like(fp["lens_mass"][0]["theta_E"].reshape(-1))
+            ll = dict(R_sersic=z + 1.0, n_sersic=z + 4.0, e1=z, e2=z,
+                      center_x=z, center_y=z, Ie=z)
+            fp = {**fp, "lens_light": [ll]}
+        return pack_params(fp)
+
     def beta(self, x, y, lens_params: List[Dict]):
         """Ray-shoots image-plane coords to the source plane.
 
@@ -423,22 +444,8 @@ class LensSimulator(gmodel.VersionedAttrs):
             and all(k in params for k in ("lens_mass", "source_light"))
             and (not pm.lens_light or "lens_light" in params)
         ):
-            fp = params
-            if "gamma" not in params["lens_mass"][0]:
-                # SIE deflector: EPL at the constant gamma = 2 (an exact
-                # special case; the constant column carries no gradient)
-                lm0 = dict(params["lens_mass"][0])
-                lm0["gamma"] = torch.full_like(lm0["theta_E"].reshape(-1), 2.0)
-                fp = {**params, "lens_mass": [lm0, params["lens_mass"][1]]}
-            if not pm.lens_light:
-                # zero-amplitude lens light: Ie = 0 kills the component
-                # exactly; the other dummies sit at benign values so the
-                # kernel's intermediate math stays finite (R=1, n=4, e=0)
-                z = torch.zeros_like(fp["lens_mass"][0]["theta_E"].reshape(-1))
-                ll = dict(R_sersic=z + 1.0, n_sersic=z + 4.0, e1=z, e2=z,
-                          center_x=z, center_y=z, Ie=z)
-                fp = {**fp, "lens_light": [ll]}
-            out = fused_render(pack_params(fp), self.img_x, self.img_y, self._fused_niter)
+            out = fused_render(self.fused_params(params), self.img_x, self.img_y,
+                               self._fused_niter)
             return torch.broadcast_to(out, (self.bs, npix))
 
         mesh = self.mesh
