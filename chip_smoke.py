@@ -12,7 +12,9 @@
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the hand-written kernels from gigalens_tpu_torch/csrc/ with nvcc
-   into build/kernels/ and prints the build time and ptxas resource usage.
+   into build/kernels/ and prints the build time and ptxas resource usage;
+   exits nonzero if ptxas reports spill bytes for any variant of the direct
+   K4 (direct_spills).
 3. Checks every kernel of the MAP path against its plain PyTorch twin at the
    main-path shapes (bs=500 samples, 25,600 supersampled pixels, niter=23;
    the PSF conv at (500, 160, 160) and its transpose at (500, 80, 80)), on
@@ -189,7 +191,11 @@
    4 images, D_dt within 2 posterior std of its truth, its split-R-hat);
    then K2/K3 at the comparison's (512, 1,024 px) for each arm and the
    direct K4 both ways at the composite MAP's and SVI's and the multi-plane
-   MAP's shapes against their twins. Its rows join step 14's line.
+   MAP's shapes against their twins; the multi-plane forward fails the run
+   if it is slower than F.conv2d timed beside it. Its rows join step 14's
+   line. Every direct K4 row, here and in the steps above, carries the
+   launch plan it ran (plan_summary: thread and block tile, samples a
+   block, blocks, shared bytes, load path) and its share of bound_ms.
 
 Steps 11 and 15 run in processes of their own (spawned) beside steps 6-8
 and steps 10, 10b's sampling and 10c, which are host-bound like them. Every
@@ -398,6 +404,22 @@ def no_tf32():
         torch.backends.cudnn.allow_tf32 = old
 
 
+def direct_spills(log):
+    """{function: (spill store bytes, spill load bytes)} of every variant of
+    the direct K4 (csrc/direct_conv.cu) that ptxas -v reports spilling."""
+    import re
+
+    spilled, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn and "direct_conv" in fn and (int(m.group(1)) or int(m.group(2))):
+            spilled[fn] = (int(m.group(1)), int(m.group(2)))
+    return spilled
+
+
 def card_line():
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -597,12 +619,24 @@ def k3_check(params, x, y, ox, oy, ct, niter, where, omega32=None):
                 ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
-def direct_checks(conv, xin, ctc, where):
+def plan_summary(pl):
+    """The launch plan a direct K4 row ran: thread tile, block tile,
+    samples a block, blocks, shared bytes, load path and buffers."""
+    return dict(thread_tile=f"{pl['rows']}x{pl['cols']}",
+                block_tile=f"{pl['rows'] * pl['rb']}x{pl['cols'] * pl['lx']}",
+                samples_a_block=pl["spb"], blocks=pl["blocks"], smem=pl["smem"],
+                warps=pl["warps"], loads="tma" if pl["tma"] else "cp.async",
+                stages=pl["stages"], live=round(pl["live"], 3))
+
+
+def direct_checks(conv, xin, ctc, where, beat_library=False):
     """K4's direct route both ways: against the float64 plain version (the
     explicit tap sums), bitwise equal over two calls, timed against the
     float32 plain version and against one PyTorch call of the same function
     (F.conv2d / F.conv_transpose2d, cuDNN without TF32; checked against the
-    same reference). Returns (rows, {direction: library ms})."""
+    same reference), each row with the launch plan it ran and its share of
+    the bound. ``beat_library``: raise if the forward is slower than the
+    library call timed beside it. Returns (rows, {direction: library ms})."""
     import torch
     import torch.nn.functional as F
 
@@ -640,15 +674,20 @@ def direct_checks(conv, xin, ctc, where):
         ms = cuda_ms(lambda: dcv.direct_conv_cuda(arg, d, direction))
         pms = cuda_ms(lambda: plain(arg), reps=2, warmup=1)
         b_ms, b_by = k4_bound(conv, arg, got, direction == "transpose")
+        pl = plan_summary(d.plan(bs, direction))
         rows.append(dict(name=f"direct_conv {direction} (K4 direct) at {where}",
                          key=f"direct_conv_{direction}", route="cuda",
                          source="gigalens_tpu_torch/csrc/direct_conv.cu",
                          replaces="gigalens_tpu/ops/pallas/dft_conv.py:95", max_abs_err=e,
                          ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=lib[direction]))
+                         library_ms=lib[direction], bound_share=b_ms / ms, plan=pl))
         print(f"K4 direct {direction} ({where}): rel err vs f64 {r:.3e} (library call "
-              f"{r_lib:.3e}), bitwise repeatable  kernel {ms:.3f} ms  plain {pms:.3f} ms  "
-              f"library {lib[direction]:.3f} ms  bound {b_ms:.3f} ms ({b_by})", flush=True)
+              f"{r_lib:.3e}), bitwise repeatable  kernel {ms:.4f} ms  plain {pms:.3f} ms  "
+              f"library {lib[direction]:.4f} ms  bound {b_ms:.4f} ms ({b_by}, "
+              f"{100 * b_ms / ms:.1f}% of it)  plan {json.dumps(pl)}", flush=True)
+        if beat_library and direction == "fwd" and ms > lib[direction]:
+            raise AssertionError(f"K4 direct fwd ({where}) {ms:.4f} ms is slower than the "
+                                 f"library call's {lib[direction]:.4f} ms")
     return rows, lib
 
 
@@ -800,7 +839,9 @@ def ragged_checks(params, x, y, niter, gen):
                           dcv.direct_conv_cuda(c, d, "transpose"),
                           dcv.direct_conv_transpose_reference(c.double(), w64, pool, d.oy, d.ox,
                                                               h, h), CONV_REL)
-        worst.append(f"{n}x{h}x{h}/{kpx}px/pool {pool}: {rf:.1e} / {rt:.1e}")
+        worst.append(f"{n}x{h}x{h}/{kpx}px/pool {pool}: {rf:.1e} / {rt:.1e} (plans "
+                     f"{json.dumps(plan_summary(d.plan(n, 'fwd')))} / "
+                     f"{json.dumps(plan_summary(d.plan(n, 'transpose')))})")
 
     kern = rng.random((9, 9)).astype(np.float32)
     factors = dft_factors(kern / kern.sum(), (40, 40), 2, half=True)
@@ -3304,7 +3345,7 @@ def demos_kernels(states):
                               f"comparison {name} SMC bs={z.shape[0]}")
         kernels += rows
 
-    def k4_rows(sc, z, phase, where):
+    def k4_rows(sc, z, phase, where, beat_library=False):
         sim = LensSimulator(sc.phys, sc.cfg, bs=z.shape[0], device=dev)
         if not direct_route(sim):
             raise AssertionError(f"step 15 {where}: the simulator must take the direct K4")
@@ -3314,7 +3355,7 @@ def demos_kernels(states):
         xin = flat.reshape(-1, conv.h, conv.w).contiguous()
         ctc = torch.randn((xin.shape[0], conv.h // conv.pool, conv.w // conv.pool),
                           generator=gen, device=dev)
-        rows, _ = direct_checks(conv, xin, ctc, where)
+        rows, _ = direct_checks(conv, xin, ctc, where, beat_library)
         return [dict(r, phase=phase) for r in rows]
 
     sc = demos.composite_scene(device=dev)
@@ -3324,7 +3365,7 @@ def demos_kernels(states):
                            f"composite {phase.upper()} bs={z.shape[0]}")
     z = states["multiplane_map"].to(dev)
     kernels += k4_rows(demos.multiplane_scene(dev), z, "demo_multiplane_map",
-                       f"multi-plane MAP bs={z.shape[0]}")
+                       f"multi-plane MAP bs={z.shape[0]}", beat_library=True)
     return kernels
 
 
@@ -3421,6 +3462,10 @@ def main(argv=()):
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}", flush=True)
+    spilled = direct_spills(log)
+    if spilled:
+        print(f"chip_smoke: ptxas spills in the direct K4's variants: {spilled}", file=sys.stderr)
+        return 1
     t0 = time.perf_counter()
     _build.load()
     print(f"load: the library's key and its ctypes load in {time.perf_counter() - t0:.3f} s",

@@ -50,10 +50,11 @@ SIGNATURES = {
     # x, out, t1 (re, im), z (re, im), u (re, im), 10 factors,
     # bs, H, W, fh, hw (spectral columns), oh, ow, stream
     "gl_dft_conv": [_P] * 18 + [_I] * 7 + [_P],
-    # x (or ct), out, w, phase table, bs, H, W, pool, KH, KW, warps, HH, PW,
-    # LDp, smem, stream (H, W: the image's size in both directions)
-    "gl_direct_conv_fwd": [_P] * 4 + [_I] * 11 + [_P],
-    "gl_direct_conv_transpose": [_P] * 4 + [_I] * 11 + [_P],
+    # x (or ct), out, w, phase table, bs, H, W, pool, KH, KW, then the plan
+    # (rows, cols, lx, rb, spb, tiles_x, bands, stages, warps, HH, PW, LDp,
+    # sb, tma, smem), stream (H, W: the image's size in both directions)
+    "gl_direct_conv_fwd": [_P] * 4 + [_I] * 21 + [_P],
+    "gl_direct_conv_transpose": [_P] * 4 + [_I] * 21 + [_P],
     # params, x, y, extras, out, records, n_mass, n_light, prefactors,
     # bs, npix, n_cols, n_sums, summed, stream
     "gl_fused_builder_fwd": [_P] * 6 + [_I, _I, _P] + [_I] * 5 + [_P],

@@ -5,14 +5,15 @@
 
 For each supersampled PSF size (pool 2, ``img`` x ``img`` images, ``bs``
 samples of standard-normal input): builds the half-spectrum DFT chain
-(``ops/cuda/dft_conv.py``) and, wherever a block of MIN_WARPS warps fits
-its shared memory, the direct strided-sum kernel
+(``ops/cuda/dft_conv.py``) and, wherever a block of MIN_FIT_WARPS warps
+fits its shared memory (``direct_conv.fits``), the direct strided-sum kernel
 (``ops/cuda/direct_conv.py``) for the same random PSF, whatever
 ``k4_route`` would pick (``route`` in the output says which); checks that
 the two routes agree to 1e-4 of the output's max in both directions, and
 times each direction of each route with CUDA events. Prints the card's
 name and power limit, then one JSON line per size: both routes' ms, the
-direct kernel's launch plan (warps per block, shared memory), both
+direct kernel's launch plan at this batch (thread tile, warps per block,
+blocks, load path, shared memory), both
 algorithms' multiply-adds a sample (the chain's also as its tiles execute
 them, forward and transpose) and the function's bound (the cheaper
 algorithm's FP32 operations over the FP32 peak). ``k4_route``
@@ -69,11 +70,10 @@ def main(argv=None):
                                   for t in (False, True)]
         row["bound_ms"] = 1e3 * 2 * bs * min(row["direct_macs"], row["chain_macs"]) / cs.FP32_PEAK
         ku, kv = dcv._sub_shape(k, k, pool)
-        fits = None not in (dcv.plan(ku, kv, pool * pool, h // pool),
-                            dcv.plan(ku, kv, 1, h // pool))
-        direct = dcv.DirectConv(kern, (h, h), pool, dev) if fits else None
+        direct = dcv.DirectConv(kern, (h, h), pool, dev) if dcv.fits(ku, kv, pool) else None
         if direct is not None:
-            row["plans"] = {d: {key: direct.plans[d][key] for key in ("warps", "smem")}
+            row["plans"] = {d: {key: direct.plan(bs, d)[key]
+                                for key in ("rows", "cols", "warps", "blocks", "tma", "smem")}
                             for d in ("fwd", "transpose")}
         for direction, arg, mats in (("fwd", x, chain.fwd_mats), ("transpose", ct, chain.bwd_mats)):
             want = dc.dft_conv_cuda(arg, mats, direction)
