@@ -1,0 +1,7 @@
+"""autograd_launches: device operations a step launched inside autograd's spans
+(``metrics/_spans.py``)."""
+from metrics import _spans
+
+
+def read(ctx, names):
+    return _spans.launches(ctx, names())

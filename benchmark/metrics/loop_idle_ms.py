@@ -1,0 +1,7 @@
+"""loop_idle_ms: device idle ms a step in the gaps that end at operations
+launched inside the MAP loop's spans (``metrics/_spans.py``)."""
+from metrics import _spans
+
+
+def read(ctx, names):
+    return _spans.idle_ms(ctx, names())

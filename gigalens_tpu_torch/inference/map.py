@@ -22,6 +22,7 @@ import torch
 
 from gigalens_tpu_torch.inference.optim import GradientTransformation
 from gigalens_tpu_torch.parallel import mesh as pmesh
+from gigalens_tpu_torch.utils.profiling import span
 
 
 def _nanmin(x):
@@ -71,14 +72,17 @@ def fit_map(
     state = optimizer.init(z)
     hist = []
     for step in range(num_steps):
-        z.requires_grad_(True)
-        lp, chisq = prob_model.log_prob(simulator, z)
-        loss = -torch.sum(lp) / n_global / event_size
-        (grad,) = torch.autograd.grad(loss, z)
-        with torch.no_grad():
-            updates, state = optimizer.update(grad, state, z)
-            z = z.detach() + updates
-            hist.append(_nanmin(chisq.detach()))
+        with span("map.step", str(step)):
+            z.requires_grad_(True)
+            lp, chisq = prob_model.log_prob(simulator, z)
+            loss = -torch.sum(lp) / n_global / event_size
+            with span("map.backward"):
+                (grad,) = torch.autograd.grad(loss, z)
+            with torch.no_grad():
+                with span("map.update"):
+                    updates, state = optimizer.update(grad, state, z)
+                    z = z.detach() + updates
+                hist.append(_nanmin(chisq.detach()))
         done = step + 1
         if progress is not None and (done % n_seg == 0 or done == num_steps):
             seg = hist[(done - 1) // n_seg * n_seg:]

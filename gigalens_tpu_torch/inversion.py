@@ -50,7 +50,6 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 import gigalens_tpu_torch.model as gmodel
@@ -58,6 +57,7 @@ import gigalens_tpu_torch.parallel.mesh as pmesh
 from gigalens_tpu_torch.prob.prior import Prior
 from gigalens_tpu_torch.profiles.base import _needs_graph
 from gigalens_tpu_torch.simulator import _batched
+from gigalens_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -198,18 +198,18 @@ class _Marginal(torch.autograd.Function):
     @staticmethod
     def forward(ctx, C, w, d, lam, H):
         with _full_fp32():
-            with record_function("inversion.gram"):
+            with span("inversion.gram"):
                 Cw = C * w
                 F = torch.matmul(Cw, _mT(C)) + lam[:, None, None] * H
                 b = torch.matmul(Cw, d[..., None])  # (bs, k, 1)
-            with record_function("inversion.cholesky"):
+            with span("inversion.cholesky"):
                 L, info = torch.linalg.cholesky_ex(F)
                 eye = torch.eye(F.shape[-1], dtype=F.dtype, device=F.device)
                 Li = torch.linalg.solve_triangular(L, eye, upper=False)
                 s = torch.matmul(_mT(Li), torch.matmul(Li, b))[..., 0]
                 logdet = 2.0 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), -1)
             bs_dot = torch.sum(b[..., 0] * s, -1)
-            with record_function("inversion.gram"):
+            with span("inversion.gram"):
                 model = torch.matmul(s[:, None, :], C)[:, 0]  # C^T s: (bs, n)
         ctx.save_for_backward(C, Cw, w, d, H, Li, s)
         ctx.mark_non_differentiable(info)
@@ -219,14 +219,14 @@ class _Marginal(torch.autograd.Function):
     def backward(ctx, g_s, g_ld, g_bs, g_model, _):
         C, Cw, w, d, H, Li, s = ctx.saved_tensors
         with _full_fp32():
-            with record_function("inversion.gram_backward"):
+            with span("inversion.gram_backward"):
                 g = g_s + torch.matmul(C, g_model[..., None])[..., 0]
-            with record_function("inversion.cholesky_backward"):
+            with span("inversion.cholesky_backward"):
                 Finv = torch.matmul(_mT(Li), Li)
                 u = torch.matmul(Finv, g[..., None])[..., 0]
                 G = g_ld[:, None, None] * Finv - (u + g_bs[:, None] * s)[..., :, None] * s[..., None, :]
             gb = u + 2.0 * g_bs[:, None] * s
-            with record_function("inversion.gram_backward"):
+            with span("inversion.gram_backward"):
                 # the two rank-1 terms as one rank-2 update of the product
                 grad_C = torch.matmul(G + _mT(G), Cw).baddbmm_(
                     torch.stack([gb, s], -1),
@@ -453,10 +453,11 @@ class PixelatedSourceProbModel(gmodel.VersionedAttrs, gmodel._SamplerFacade):
 
     def log_prob(self, simulator, z):
         """Unconstrained marginal log posterior and reduced chi2; z (bs, d)."""
-        x = self.prior.constrain(z)
-        log_like, red_chi2 = self.stats_pixels(simulator, x)
-        log_prior = self.prior.log_prob(x) + self.prior.fldj(z)
-        return log_like + log_prior, red_chi2
+        with span("likelihood.log_prob"):
+            x = self.prior.constrain(z)
+            log_like, red_chi2 = self.stats_pixels(simulator, x)
+            log_prior = self.prior.log_prob(x) + self.prior.fldj(z)
+            return log_like + log_prior, red_chi2
 
     def log_like(self, simulator, z):
         return self.stats_pixels(simulator, self.prior.constrain(z))[0]

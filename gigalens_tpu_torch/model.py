@@ -27,6 +27,7 @@ import gigalens_tpu_torch.parallel.mesh as pmesh
 from gigalens_tpu_torch.cosmology import FlatLambdaCDM, multiplane_factors
 from gigalens_tpu_torch.prob.prior import Prior
 from gigalens_tpu_torch.profiles.base import LightProfile, MassProfile
+from gigalens_tpu_torch.utils.profiling import span
 
 
 def resolve_device(device) -> torch.device:
@@ -433,15 +434,16 @@ class ForwardProbModel(VersionedAttrs, _SamplerFacade):
     def log_prob(self, simulator, z):
         """Unconstrained log posterior and reduced chi2 (the mean over the
         included terms); z shaped (bs, d)."""
-        x = self.prior.constrain(z)
-        log_like = torch.zeros(z.shape[:-1], dtype=z.dtype, device=z.device)
-        red_chi2 = torch.zeros(z.shape[:-1], dtype=z.dtype, device=z.device)
-        terms = self._term_stats(simulator, x)
-        for ll, rc in terms:
-            log_like, red_chi2 = log_like + ll, red_chi2 + rc
-        red_chi2 = red_chi2 / max(len(terms), 1)
-        log_prior = self.prior.log_prob(x) + self.prior.fldj(z)
-        return log_like + log_prior, red_chi2
+        with span("likelihood.log_prob"):
+            x = self.prior.constrain(z)
+            log_like = torch.zeros(z.shape[:-1], dtype=z.dtype, device=z.device)
+            red_chi2 = torch.zeros(z.shape[:-1], dtype=z.dtype, device=z.device)
+            terms = self._term_stats(simulator, x)
+            for ll, rc in terms:
+                log_like, red_chi2 = log_like + ll, red_chi2 + rc
+            red_chi2 = red_chi2 / max(len(terms), 1)
+            log_prior = self.prior.log_prob(x) + self.prior.fldj(z)
+            return log_like + log_prior, red_chi2
 
     def log_like(self, simulator, z):
         x = self.prior.constrain(z)
@@ -623,12 +625,13 @@ class BackwardProbModel(VersionedAttrs, _SamplerFacade):
 
     def log_prob(self, simulator, z):
         """Unconstrained log posterior and reduced chi2; z shaped (bs, d)."""
-        x = self.prior.constrain(z)
-        log_like, red_chi2 = self.stats_pixels(simulator, x)
-        log_prior = self.prior.log_prob(x) + self.prior.fldj(z)
-        batch = z.shape[:-1]  # bs = 1 squeezes to scalars; match the batch
-        return (torch.broadcast_to(log_like + log_prior, batch),
-                torch.broadcast_to(red_chi2, batch))
+        with span("likelihood.log_prob"):
+            x = self.prior.constrain(z)
+            log_like, red_chi2 = self.stats_pixels(simulator, x)
+            log_prior = self.prior.log_prob(x) + self.prior.fldj(z)
+            batch = z.shape[:-1]  # bs = 1 squeezes to scalars; match the batch
+            return (torch.broadcast_to(log_like + log_prior, batch),
+                    torch.broadcast_to(red_chi2, batch))
 
     def log_like(self, simulator, z):
         return self.stats_pixels(simulator, self.prior.constrain(z))[0]

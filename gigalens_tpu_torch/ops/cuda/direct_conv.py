@@ -33,10 +33,10 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from gigalens_tpu_torch.ops.cuda import _build
 from gigalens_tpu_torch.ops.cuda.dft_conv import chain_macs
+from gigalens_tpu_torch.utils.profiling import span
 
 # Launch counts per direction; each wrapper adds one where it launches.
 launches = {"direct_conv_fwd": 0, "direct_conv_transpose": 0}
@@ -483,7 +483,7 @@ def direct_conv_cuda(x, conv: "DirectConv", direction: str, pl=None):
     fn = lib.gl_direct_conv_fwd if direction == "fwd" else lib.gl_direct_conv_transpose
     # one kernel symbol serves both directions: the range names the direction
     # in a torch.profiler trace
-    with torch.cuda.device(x.device), record_function(f"direct_conv_{direction}"):
+    with torch.cuda.device(x.device), span(f"direct_conv_{direction}"):
         err = fn(ptr(x), ptr(out), ptr(w), ptr(table), bs, conv.h, conv.w, conv.pool, conv.ku,
                  conv.kv, *(pl[k] for k in PLAN_ARGS), _build.stream(x.device))
     _build.check(err, f"direct_conv ({direction})")

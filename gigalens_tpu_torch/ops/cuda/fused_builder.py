@@ -56,6 +56,7 @@ from gigalens_tpu_torch.ops.cuda import fused_render as fr
 from gigalens_tpu_torch.ops.cuda._math import half_angle, half_angle_bwd, powp
 from gigalens_tpu_torch.ops.cuda.fused_render import _sersic_bwd, _sersic_light
 from gigalens_tpu_torch.profiles.mass.epl import _omega_cs_bwd, _omega_cs_impl, omega_cs
+from gigalens_tpu_torch.utils.profiling import span
 
 # stage opcodes, mirrored by csrc/stages.cuh
 EPL, SIS, SHEAR, NFW, NFW_E, SERIES = 0, 1, 2, 3, 4, 5
@@ -1501,7 +1502,8 @@ class _FusedBuilder(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         params, x, y, *extras = ctx.saved_tensors
-        g = fused_builder_bwd(ctx.spec, params, x, y, extras, ct.contiguous(), ctx.summed)
+        with span("simulator.render_backward"):
+            g = fused_builder_bwd(ctx.spec, params, x, y, extras, ct.contiguous(), ctx.summed)
         # the coefficient grids are precomputed constants of the sampled
         # parameters, and coordinates carry no gradient (as in JAX)
         return (None, None, g, torch.zeros_like(x), torch.zeros_like(y),

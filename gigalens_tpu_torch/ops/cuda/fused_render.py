@@ -48,6 +48,7 @@ import torch
 from gigalens_tpu_torch.ops.cuda import _build
 from gigalens_tpu_torch.ops.cuda._math import half_angle, half_angle_bwd, powp
 from gigalens_tpu_torch.profiles.mass.epl import _omega_cs_impl, omega_cs
+from gigalens_tpu_torch.utils.profiling import span
 
 N_PARAMS = 22
 TILE = 256  # pixels per block of the CUDA kernels (one thread each)
@@ -582,7 +583,8 @@ class _FusedRender(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         params, x, y, ox, oy = ctx.saved_tensors
-        g = fused_render_bwd(params, x, y, ox, oy, ct.contiguous(), ctx.niter)
+        with span("simulator.render_backward"):
+            g = fused_render_bwd(params, x, y, ox, oy, ct.contiguous(), ctx.niter)
         return g, None, None, None
 
 

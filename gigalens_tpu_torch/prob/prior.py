@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from gigalens_tpu_torch.prob.distributions import Distribution
+from gigalens_tpu_torch.utils.profiling import span
 
 
 def _flatten(tree, is_leaf):
@@ -120,10 +121,11 @@ class Prior:
         return xl
 
     def log_prob(self, x):
-        lp = 0.0
-        for leaf, xv in zip(self.leaves, self._flatten_like(x)):
-            lp = lp + leaf.log_prob(xv)
-        return lp
+        with span("prior.log_prob"):
+            lp = 0.0
+            for leaf, xv in zip(self.leaves, self._flatten_like(x)):
+                lp = lp + leaf.log_prob(xv)
+            return lp
 
     def unconstrain(self, x):
         """Constrained params tree -> (..., d) unconstrained matrix."""
@@ -150,19 +152,21 @@ class Prior:
     def constrain(self, z):
         """(..., d) unconstrained matrix -> constrained params tree."""
         self._check_width(z)
-        out = [leaf.bijector.forward(zi) for leaf, _, zi in self._columns(z)]
+        with span("prior.constrain"):
+            out = [leaf.bijector.forward(zi) for leaf, _, zi in self._columns(z)]
         return _unflatten(self.struct, out)
 
     def fldj(self, z):
         """Sum of forward log-det-Jacobians over all columns; shape = batch."""
         self._check_width(z)
-        total = torch.zeros(z.shape[:-1], dtype=z.dtype, device=z.device)
-        for leaf, esh, zi in self._columns(z):
-            ld = leaf.bijector.forward_log_det_jacobian(zi)
-            if esh:
-                ld = torch.sum(ld, dim=tuple(range(-len(esh), 0)))
-            total = total + ld
-        return total
+        with span("prior.fldj"):
+            total = torch.zeros(z.shape[:-1], dtype=z.dtype, device=z.device)
+            for leaf, esh, zi in self._columns(z):
+                ld = leaf.bijector.forward_log_det_jacobian(zi)
+                if esh:
+                    ld = torch.sum(ld, dim=tuple(range(-len(esh), 0)))
+                total = total + ld
+            return total
 
     def log_prob_z(self, z):
         """Prior density of unconstrained z (constrained log-prob + Jacobian)."""

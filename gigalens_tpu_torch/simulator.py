@@ -44,6 +44,7 @@ from gigalens_tpu_torch.profiles.light.sersic import SersicEllipse
 from gigalens_tpu_torch.profiles.mass.epl import EPL
 from gigalens_tpu_torch.profiles.mass.shear import Shear
 from gigalens_tpu_torch.profiles.mass.sie import SIE
+from gigalens_tpu_torch.utils.profiling import span
 
 
 def _batched(p: Dict):
@@ -71,11 +72,12 @@ class _PInv(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        a, p = ctx.saved_tensors
-        pt, gt = p.mT, g.mT
-        grad = (-(pt @ g) @ pt
-                + (gt - a @ (p @ gt)) @ (p @ pt)
-                + (pt @ p) @ (gt - (gt @ p) @ a))
+        with span("simulator.lstsq_backward"):
+            a, p = ctx.saved_tensors
+            pt, gt = p.mT, g.mT
+            grad = (-(pt @ g) @ pt
+                    + (gt - a @ (p @ gt)) @ (p @ pt)
+                    + (pt @ p) @ (gt - (gt @ p) @ a))
         return grad, None
 
 
@@ -482,6 +484,13 @@ class LensSimulator(gmodel.VersionedAttrs):
             return torch.zeros((self.bs, npix), dtype=x.dtype, device=self.device)
         return torch.broadcast_to(sum(values), (self.bs, npix))
 
+    def _render(self, params, no_deflection=False, stack_components=False):
+        """:meth:`_flat_light` placed on the supersampled grid:
+        (bs, h_ss, w_ss), or (depth, bs, h_ss, w_ss) when
+        ``stack_components``."""
+        with span("simulator.render"):
+            return self._place(self._flat_light(params, no_deflection, stack_components))
+
     def _place(self, flat):
         """(..., npix) flat live-pixel values -> (..., h_ss, w_ss) image."""
         lead = flat.shape[:-1]
@@ -494,22 +503,22 @@ class LensSimulator(gmodel.VersionedAttrs):
 
     def _postprocess(self, img):
         """nan guard -> PSF -> downsample -> pixel-area scale."""
-        img = torch.nan_to_num(img)
-        pooled = False
-        if self._conv is not None:
-            # the sample axis is the one before the image axes, also for
-            # lstsq components (depth, bs, h, w): a per-scene PSF meets each
-            # component of a row with the row's own scene's kernel (F-ref-6)
-            img = self._conv(img, scene_axis=-3)
-            pooled = self._conv.pool > 1
-        if not pooled:
-            img = average_pool(img, self.supersample)
-        return img * self.conversion_factor
+        with span("simulator.psf"):
+            img = torch.nan_to_num(img)
+            pooled = False
+            if self._conv is not None:
+                # the sample axis is the one before the image axes, also for
+                # lstsq components (depth, bs, h, w): a per-scene PSF meets each
+                # component of a row with the row's own scene's kernel (F-ref-6)
+                img = self._conv(img, scene_axis=-3)
+                pooled = self._conv.pool > 1
+            if not pooled:
+                img = average_pool(img, self.supersample)
+            return img * self.conversion_factor
 
     def simulate(self, params, no_deflection=False):
         """Renders observed-frame images; returns (bs, H, W) squeezed."""
-        flat = self._flat_light(params, no_deflection=no_deflection)
-        return torch.squeeze(self._postprocess(self._place(flat)))
+        return torch.squeeze(self._postprocess(self._render(params, no_deflection)))
 
     def _render_selected(self, params, lens_light: bool, source_light: bool,
                          no_deflection: bool = False):
@@ -531,8 +540,7 @@ class LensSimulator(gmodel.VersionedAttrs):
         view._use_fused = False
         view._lens_light_constants = self._lens_light_constants if lens_light else []
         view._source_light_constants = self._source_light_constants if source_light else []
-        flat = view._flat_light(params, no_deflection=no_deflection)
-        return torch.squeeze(self._postprocess(self._place(flat)))
+        return torch.squeeze(self._postprocess(view._render(params, no_deflection)))
 
     def simulate_source(self, params):
         """Unlensed source render (no deflection applied)."""
@@ -560,9 +568,7 @@ class LensSimulator(gmodel.VersionedAttrs):
         observed_image = torch.as_tensor(observed_image, dtype=torch.float32,
                                          device=self.device)
         err_map = torch.as_tensor(err_map, dtype=torch.float32, device=self.device)
-        stacked = self._flat_light(params, no_deflection=no_deflection,
-                                   stack_components=True)  # (depth, bs, npix)
-        imgs = self._postprocess(self._place(stacked))  # (depth, bs, H, W)
+        imgs = self._postprocess(self._render(params, no_deflection, stack_components=True))
         if return_stacked:
             return imgs.permute(1, 2, 3, 0)
         S = observed_image.shape[0] if observed_image.ndim == 3 else 1
@@ -577,10 +583,11 @@ class LensSimulator(gmodel.VersionedAttrs):
         # algorithms by the number of rows, and the image's gradient to the
         # amplitudes is a sum over a row's pixels
         mesh = self.mesh
-        rows = imgs.reshape(imgs.shape[0], S, self.bs // S, *imgs.shape[2:])
-        coeffs, out = solve(pmesh.pad_rows(rows, mesh, dim=2).flatten(1, 2))
-        coeffs = pmesh.rank_rows(coeffs.reshape(S, -1, self.depth), mesh, dim=1)
-        out = pmesh.rank_rows(out.reshape(S, -1, *out.shape[1:]), mesh, dim=1)
+        with span("simulator.lstsq"):
+            rows = imgs.reshape(imgs.shape[0], S, self.bs // S, *imgs.shape[2:])
+            coeffs, out = solve(pmesh.pad_rows(rows, mesh, dim=2).flatten(1, 2))
+            coeffs = pmesh.rank_rows(coeffs.reshape(S, -1, self.depth), mesh, dim=1)
+            out = pmesh.rank_rows(out.reshape(S, -1, *out.shape[1:]), mesh, dim=1)
         if return_coeffs:
             return coeffs.reshape(self.bs, self.depth)
         return torch.squeeze(out.reshape(self.bs, *out.shape[-2:]))

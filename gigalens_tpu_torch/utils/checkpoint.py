@@ -14,7 +14,7 @@ import os
 import numpy as np
 import torch
 
-from gigalens_tpu_torch.model import resolve_device
+import gigalens_tpu_torch.model as gmodel
 from gigalens_tpu_torch.parallel import mesh as pmesh
 from gigalens_tpu_torch.prob.distributions import MultivariateNormalTriL
 
@@ -24,7 +24,7 @@ def _np(x):
 
 
 def _tensors(device, *arrays):
-    device = resolve_device(device)
+    device = gmodel.resolve_device(device)
     return tuple(torch.as_tensor(np.array(a), device=device) for a in arrays)
 
 
@@ -108,7 +108,7 @@ class PipelineCheckpointer:
 
     def __init__(self, directory: str, device=None, mesh=None):
         self.dir = directory
-        self.device = resolve_device(device)
+        self.device = gmodel.resolve_device(device)
         self.mesh = mesh
         os.makedirs(directory, exist_ok=True)
 

@@ -1,6 +1,7 @@
 """Tracing / timing helpers (port of :mod:`gigalens_tpu.utils.profiling`).
 
-``trace`` wraps ``torch.profiler`` (host and, where there is one, CUDA
+``span`` names a stretch of the port's work in a ``torch.profiler`` trace,
+and costs a flag check when no profiler runs. ``trace`` wraps ``torch.profiler`` (host and, where there is one, CUDA
 activity) and writes a Chrome trace into ``log_dir`` for Perfetto or
 ``chrome://tracing``; ``timed`` gives device timings that wait for the
 card (``torch.cuda.synchronize``) before each clock read, with the warmup
@@ -14,12 +15,30 @@ import time
 from typing import Callable
 
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.autograd import profiler as _autograd_profiler
+from torch.profiler import ProfilerActivity, profile, record_function
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 def _sync():
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
+
+
+def span(name: str, args: str | None = None):
+    """``with span("prior.constrain"): ...``: a ``record_function`` range
+    while a torch profiler runs, else nothing (torch's profiler ops are
+    not entered). Names are ``<layer>.<what>`` from a fixed vocabulary
+    (``map.step``, ``map.backward``, ``map.update``, ``likelihood.log_prob``,
+    ``prior.constrain`` / ``log_prob`` / ``fldj``, ``simulator.render`` /
+    ``psf`` / ``lstsq`` / ``render_backward`` / ``lstsq_backward``; the
+    kernels' ``direct_conv_fwd`` / ``direct_conv_transpose`` and the
+    inversion's ``inversion.*``): what varies from call to call, such as
+    a step's index, goes in ``args``, never in the name."""
+    if _autograd_profiler._is_profiler_enabled:
+        return record_function(name, args)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
