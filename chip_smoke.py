@@ -14,7 +14,7 @@
 2. Builds the hand-written kernels from gigalens_tpu_torch/csrc/ with nvcc
    into build/kernels/ and prints the build time and ptxas resource usage;
    exits nonzero if ptxas reports spill bytes for any variant of the direct
-   K4 (direct_spills).
+   K4 or for the lstsq pseudo-inverse (direct_spills).
 3. Checks every kernel of the MAP path against its plain PyTorch twin at the
    main-path shapes (bs=500 samples, 25,600 supersampled pixels, niter=23;
    the PSF conv at (500, 160, 160) and its transpose at (500, 80, 80)), on
@@ -44,6 +44,12 @@
    Taylor-series stage on seeded coefficient grids), and ragged shapes. K7
    is held against float64 autograd of the one-stage forward and against
    its float32 two-stage twin, and must give bitwise-equal results twice.
+   Then the lstsq solve's pseudo-inverse (csrc/gram_pinv.cu) on the Grams
+   of family L at 500 prior starts, against its twin and torch.linalg.pinv,
+   bitwise twice and alone, NaN matrices NaN, timed against
+   torch.linalg.pinv; and three fit_map steps of family L under
+   torch.profiler, which must make no synchronising CUDA call inside a step
+   (torch.linalg.pinv in the kernel's place, the control, makes one).
 5. Runs the MAP phase of the bench scene (bench.py: EPL+Shear, SersicEllipse
    lens light and source, 80x80 px at 0.065", supersample 2, the 25x25
    Gaussian fallback PSF) through ModellingSequence: truth from a seeded
@@ -267,6 +273,9 @@ BS, NUM_PIX, SUPERSAMPLE, DELTA_PIX = 500, 80, 2, 0.065
 MAP_STEPS = 50
 CHAIN_STEPS = 10  # MAP steps of the chain phase
 RENDER_REL = 1e-5  # a rendered batch against the float64 FFT conv, of its max
+# the lstsq pseudo-inverse against its twin and torch.linalg.pinv, of each
+# matrix's largest entry (tests/test_torch_cluster_faults.py's float64 bound)
+GRAM_PINV_REL = 1e-9
 FAMILY_NITER, SHAPELET_NMAX, LSTSQ_NMAX = 23, 6, 4
 
 
@@ -404,9 +413,10 @@ def no_tf32():
         torch.backends.cudnn.allow_tf32 = old
 
 
-def direct_spills(log):
+def direct_spills(log, kernels=("direct_conv", "gram_pinv")):
     """{function: (spill store bytes, spill load bytes)} of every variant of
-    the direct K4 (csrc/direct_conv.cu) that ptxas -v reports spilling."""
+    the direct K4 (csrc/direct_conv.cu) and of the lstsq pseudo-inverse
+    (csrc/gram_pinv.cu) that ptxas -v reports spilling."""
     import re
 
     spilled, fn = {}, None
@@ -415,7 +425,8 @@ def direct_spills(log):
         if m:
             fn = m.group(1)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m and fn and "direct_conv" in fn and (int(m.group(1)) or int(m.group(2))):
+        if (m and fn and any(k in fn for k in kernels)
+                and (int(m.group(1)) or int(m.group(2)))):
             spilled[fn] = (int(m.group(1)), int(m.group(2)))
     return spilled
 
@@ -1015,6 +1026,144 @@ def builder_checks():
     return kernels
 
 
+def family_l_grams(prob, sim, z):
+    """The (BS, 16, 16) float64 Grams that family L's lstsq solve hands the
+    pseudo-inverse at the starts ``z``, taken at the call."""
+    import torch
+
+    import gigalens_tpu_torch.simulator as gsim
+
+    seen, solve = [], gsim.gram_pinv
+
+    def record(a, rtol):
+        seen.append(a.detach().clone())
+        return solve(a, rtol)
+
+    gsim.gram_pinv = record
+    try:
+        with torch.no_grad():
+            prob.log_prob(sim, z)
+    finally:
+        gsim.gram_pinv = solve
+    return seen[0]
+
+
+def step_syncs(prof):
+    """``host_syncs_per_step`` (benchmark/metrics/host_syncs_per_step.py, the
+    benchmark's reader) of a torch.profiler window: the CUDA calls that wait
+    for the card inside its whole ``map.step`` spans, a step."""
+    import importlib.util
+
+    from torch.autograd import DeviceType
+
+    spec = importlib.util.spec_from_file_location(
+        "host_syncs_per_step", ROOT / "benchmark" / "metrics" / "host_syncs_per_step.py")
+    reader = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(reader)
+    # host events only: a span's device-side annotation runs on the card's
+    # clock, past the host's last call
+    host = sorted((e.name(), e.start_ns(), e.start_ns() + e.duration_ns(), 0)
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() != DeviceType.CUDA)
+    return reader.read({"host_trace": {"host": host}}, None)
+
+
+def gram_pinv_checks():
+    """The lstsq pseudo-inverse (csrc/gram_pinv.cu) on family L's Grams at
+    BS prior starts: against its twin and torch.linalg.pinv (GRAM_PINV_REL
+    of each matrix's largest entry; matrices with a singular value within
+    1e-9 of the cutoff reported apart), bitwise over two calls and alone,
+    NaN and inf matrices NaN and the others unchanged, timed against
+    torch.linalg.pinv; then fit_map steps of the cell under torch.profiler:
+    no synchronising call inside a step, one launch a step and no fallback,
+    and torch.linalg.pinv in its place as the control (a wait a step)."""
+    import torch
+
+    import gigalens_tpu_torch.simulator as gsim
+    from gigalens_tpu_torch.inference.map import fit_map
+    from gigalens_tpu_torch.inference.sequence import map_optimizer
+    from gigalens_tpu_torch.ops.cuda import gram_pinv as gp
+    from gigalens_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from gigalens_tpu_torch.simulator import LensSimulator
+
+    dev = torch.device("cuda")
+    phys, prob, prior, cfg = problem("L")
+    sim = LensSimulator(phys, cfg, bs=BS, device=dev)
+    z = prior.unconstrain(prior.sample(torch.Generator(device=dev).manual_seed(7), BS))
+    gram = family_l_grams(prob, sim, z)
+    rtol = 1e-6
+    p_k = gp.gram_pinv_cuda(gram, rtol)
+    torch.cuda.synchronize()
+    s = torch.linalg.svdvals(gram)
+    near = ((s / s[:, :1] / rtol - 1.0).abs() < 1e-9).any(dim=1)
+    errs = {}
+    for name, want in (("twin", gp.gram_pinv_reference(gram, rtol)),
+                       ("torch.linalg.pinv", torch.linalg.pinv(gram, rtol=rtol))):
+        rel = (p_k - want).abs().amax((1, 2)) / want.abs().amax((1, 2)).clamp_min(1e-300)
+        errs[name] = float(rel[~near].max())
+        if not errs[name] <= GRAM_PINV_REL:
+            raise AssertionError(f"gram_pinv vs {name}: {errs[name]:.3e} of a matrix's max "
+                                 f"exceeds {GRAM_PINV_REL}")
+        if near.any():
+            print(f"gram_pinv vs {name}: {int(near.sum())} matrices within 1e-9 of the cutoff, "
+                  f"largest error {float(rel[near].max()):.3e} of their max", flush=True)
+    if not torch.equal(p_k, gp.gram_pinv_cuda(gram, rtol)):
+        raise AssertionError("gram_pinv is not deterministic from run to run")
+    if not torch.equal(p_k[:7], gp.gram_pinv_cuda(gram[:7].contiguous(), rtol)):
+        raise AssertionError("gram_pinv's matrices depend on the batch they are in")
+    bad = gram.clone()
+    bad[3, 2, 5], bad[5, 0, 0] = float("nan"), float("inf")
+    p_bad = gp.gram_pinv_cuda(bad, rtol)
+    rest = torch.ones(BS, dtype=torch.bool, device=dev)
+    rest[[3, 5]] = False
+    if not (torch.isnan(p_bad[[3, 5]]).all() and torch.equal(p_bad[rest], p_k[rest])):
+        raise AssertionError("gram_pinv: a NaN or inf matrix must come out NaN, the others "
+                             "unchanged")
+    ms = cuda_ms(lambda: gp.gram_pinv_cuda(gram, rtol), reps=20)
+    pms = cuda_ms(lambda: gp.gram_pinv_reference(gram, rtol), reps=3, warmup=1)
+    lib_ms = cuda_ms(lambda: torch.linalg.pinv(gram, rtol=rtol), reps=20)
+    b_ms, b_by = bound(0, [gram, p_k])
+    print(f"gram_pinv ({BS}, 16, 16) family L Grams: rel err vs twin {errs['twin']:.3e}, vs "
+          f"torch.linalg.pinv {errs['torch.linalg.pinv']:.3e}; bitwise repeatable and alone; "
+          f"NaN rows NaN  kernel {ms:.4f} ms  twin {pms:.3f} ms  torch.linalg.pinv (with its "
+          f"host read) {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})", flush=True)
+
+    opt = map_optimizer(5)
+    fit_map(prob, sim, opt, start=z, num_steps=2)
+    syncs = {}
+    for route in ("kernel", "torch.linalg.pinv"):
+        solve = gsim.gram_pinv
+        if route != "kernel":
+            gsim.gram_pinv = lambda a, rtol: torch.linalg.pinv(a, rtol=rtol)
+        try:
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                fit_map(prob, sim, opt, start=z, num_steps=3)
+                torch.cuda.synchronize()
+            counts = launch_counts()
+        finally:
+            gsim.gram_pinv = solve
+        syncs[route] = step_syncs(prof)
+        print(f"fit_map steps of family L at bs={BS}, pinv by {route}: {syncs[route]} "
+              f"synchronising calls a step; gram_pinv launches {counts['gram_pinv']}, "
+              f"fallbacks {counts['gram_pinv_fallback']}", flush=True)
+        if route == "kernel" and (syncs[route] != 0 or counts["gram_pinv"] != 3
+                                  or counts["gram_pinv_fallback"] != 0):
+            raise AssertionError(f"a family L MAP step must launch gram_pinv once, fall back "
+                                 f"never and wait for the card nowhere: {syncs[route]} "
+                                 f"synchronising calls a step, {counts}")
+    if (syncs["torch.linalg.pinv"] or 0) < 1:
+        raise AssertionError(f"the control (torch.linalg.pinv) shows no wait a step "
+                             f"({syncs['torch.linalg.pinv']}): the trace misses the calls")
+    return [dict(name="gram_pinv (family L Grams)", phase="L", key="gram_pinv", route="cuda",
+                 source="gigalens_tpu_torch/csrc/gram_pinv.cu",
+                 replaces="none (jnp.linalg.pinv, gigalens_tpu/simulator.py lstsq_simulate)",
+                 max_abs_err=errs["twin"], ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                 library_ms=lib_ms)]
+
+
 def builder_ragged(spec, params, x, y, summed, gen):
     """3 samples x 1000 pixels through the image center (off the 256-pixel
     tile grid): the kernels against the float64 twin and its autograd."""
@@ -1289,6 +1438,8 @@ def family_path(kind, steps):
     and the direct K4, 16 components x BS images per conv)."""
     fwd = "fused_builder_fwd_sum" if kind == "S" else "fused_builder_fwd_components"
     need = (fwd, "fused_builder_bwd", "direct_conv_fwd", "direct_conv_transpose")
+    if kind == "L":
+        need += ("gram_pinv",)
     return map_phase(f"family {kind}", *problem(kind), steps, builder_check, need)
 
 
@@ -3464,7 +3615,8 @@ def main(argv=()):
             print(f"  ptxas: {line.strip()}", flush=True)
     spilled = direct_spills(log)
     if spilled:
-        print(f"chip_smoke: ptxas spills in the direct K4's variants: {spilled}", file=sys.stderr)
+        print(f"chip_smoke: ptxas spills in the direct K4's variants or gram_pinv: {spilled}",
+              file=sys.stderr)
         return 1
     t0 = time.perf_counter()
     _build.load()
@@ -3511,6 +3663,7 @@ def main(argv=()):
     # kernel_checks' rows belong to the bench MAP phase unless they say otherwise
     kernels = [dict(dict(phase="bench"), **k) for k in kernel_checks()]
     kernels += builder_checks()
+    kernels += gram_pinv_checks()
     if "--kernels" in argv:
         # a development aid: no main path ran, so no launch counts and no ok line
         print(card)

@@ -61,6 +61,8 @@ SIGNATURES = {
     # params, x, y, extras, ct, partial, grad, records, n_mass, n_light,
     # prefactors, bs, npix, n_cols, n_sums, summed, stream
     "gl_fused_builder_bwd": [_P] * 8 + [_I, _I, _P] + [_I] * 5 + [_P],
+    # a, p, batch, n, rtol, stream
+    "gl_gram_pinv": [_P, _P, _I, _I, ctypes.c_double, _P],
 }
 
 

@@ -38,6 +38,7 @@ import gigalens_tpu_torch.parallel.mesh as pmesh
 from gigalens_tpu_torch.config import LensWCS, SimulatorConfig
 from gigalens_tpu_torch.ops.cuda import fused_builder
 from gigalens_tpu_torch.ops.cuda.fused_render import fused_render, pack_params
+from gigalens_tpu_torch.ops.cuda.gram_pinv import gram_pinv
 from gigalens_tpu_torch.ops.psf import PSFConv, average_pool, subgrid_kernel
 from gigalens_tpu_torch.profiles.base import _grad_leaf, _needs_graph
 from gigalens_tpu_torch.profiles.light.sersic import SersicEllipse
@@ -53,10 +54,13 @@ def _batched(p: Dict):
 
 
 class _PInv(torch.autograd.Function):
-    """The Moore-Penrose pseudo-inverse ``P`` of a batch of real matrices
-    ``A``, singular values at or below ``rtol`` times the largest dropped
-    (``torch.linalg.pinv``), differentiated as the JAX package
-    differentiates ``jnp.linalg.pinv``: by Golub and Pereyra's formula
+    """The Moore-Penrose pseudo-inverse ``P`` of a batch of real symmetric
+    matrices ``A`` (the lstsq solve's Grams), singular values at or below
+    ``rtol`` times the largest dropped (``torch.linalg.pinv``; on the card
+    at float64 and depth up to 32 the hand-written Jacobi kernel, which
+    reads nothing back to the host: ``ops/cuda/gram_pinv.py``),
+    differentiated as the JAX package differentiates
+    ``jnp.linalg.pinv``: by Golub and Pereyra's formula
     (SIAM J. Numer. Anal. 10, 413, 1973), whose vector-Jacobian product
     with cotangent ``G`` is ``-P^T G P^T + (I - A P) G^T P P^T + P^T P G^T
     (I - P A)``. Autograd through the SVD would differentiate the singular
@@ -66,7 +70,7 @@ class _PInv(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, a, rtol):
-        p = torch.linalg.pinv(a, rtol=rtol)
+        p = gram_pinv(a, rtol)
         ctx.save_for_backward(a, p)
         return p
 
@@ -82,8 +86,8 @@ class _PInv(torch.autograd.Function):
 
 
 def pinv(a, rtol):
-    """:class:`_PInv`: ``torch.linalg.pinv(a, rtol=rtol)`` with the JAX
-    package's derivative."""
+    """:class:`_PInv`: ``torch.linalg.pinv(a, rtol=rtol)`` of symmetric
+    ``a`` with the JAX package's derivative."""
     return _PInv.apply(a, rtol)
 
 
@@ -579,9 +583,10 @@ class LensSimulator(gmodel.VersionedAttrs):
             return coeffs, torch.sum(imgs.permute(1, 2, 3, 0) * coeffs[:, None, None, :], dim=-1)
 
         # at the global row count, each scene's rows among filler rows for the
-        # other ranks': the batched GEMMs and the pseudo-inverse pick their
-        # algorithms by the number of rows, and the image's gradient to the
-        # amplitudes is a sum over a row's pixels
+        # other ranks': the batched GEMMs (and torch.linalg.pinv off the
+        # Jacobi kernel's route) pick their algorithms by the number of rows,
+        # and the image's gradient to the amplitudes is a sum over a row's
+        # pixels
         mesh = self.mesh
         with span("simulator.lstsq"):
             rows = imgs.reshape(imgs.shape[0], S, self.bs // S, *imgs.shape[2:])

@@ -12,8 +12,9 @@ the cold start a user pays in a new process. In order, each timed alone:
 2. the kernel library: its key and build (``_build.build``, with the
    seconds spent compiling), then its load (``_build.load``, ctypes);
 3. the first CUDA work: the context (a one-element tensor), the first
-   cuBLAS GEMM (its handle), the first cuSOLVER calls (a float32
-   Cholesky and a float64 pseudo-inverse, as the lstsq solve runs it);
+   cuBLAS GEMM (its handle), the first cuSOLVER call (a float32
+   Cholesky) and the lstsq solve's float64 pseudo-inverse (the Jacobi
+   kernel, ``ops/cuda/gram_pinv.py``);
 4. config #5's series precompute (``bench.cluster_members("dpie")``,
    order 3, on the 48-px scene's supersampled grid), split into its member
    chunks (members 0-15 and 16-19, ``DPIESubhaloSeries`` on each
@@ -73,6 +74,7 @@ def main(argv=None):
 
     mark("import gigalens_tpu_torch.bench", t)
     from gigalens_tpu_torch.ops.cuda import _build
+    from gigalens_tpu_torch.ops.cuda.gram_pinv import gram_pinv
 
     t = time.perf_counter()
     path, secs, _ = _build.build()
@@ -93,9 +95,9 @@ def main(argv=None):
     t = time.perf_counter()
     spd = b + 256 * torch.eye(256, device=dev)
     torch.linalg.cholesky(spd)
-    torch.linalg.pinv(spd[:15, :15].double().expand(4, 15, 15), rtol=1e-6)
+    gram_pinv(spd[:15, :15].double().expand(4, 15, 15), 1e-6)
     sync()
-    mark("first cuSOLVER calls", t)
+    mark("first cuSOLVER call and pseudo-inverse", t)
 
     from gigalens_tpu_torch import PhysicalModel, SimulatorConfig
     from gigalens_tpu_torch.profiles.light import Shapelets
